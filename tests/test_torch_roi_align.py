@@ -1,0 +1,92 @@
+"""Port's plain RoIAlign vs the JAX package's `batched_roi_align` (XLA) and
+its Pallas `roi_align_fused` in interpret mode, on edge-case RoIs, in both
+flatten orders. f32 agrees to 1e-5: both sides compute the same separable
+weights and sum only the (at most 2 * sr) nonzero taps per axis, so only
+summation order differs."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from .torch_port_utils import JAX_PKG, PORT_PKG, edge_case_rois
+
+jra = importlib.import_module(f'{JAX_PKG}.ops.roi_align')
+jpallas = importlib.import_module(f'{JAX_PKG}.ops.roi_align_pallas')
+tra = importlib.import_module(f'{PORT_PKG}.ops.roi_align')
+
+
+def _data(seed=0, b=2, h=6, w=9, c=16, n=24):
+    rs = np.random.RandomState(seed)
+    feats = rs.standard_normal((b, h, w, c)).astype(np.float32)
+    return feats, edge_case_rois(rs, b, n, h, w)
+
+
+@pytest.mark.parametrize('flatten', [False, True])
+@pytest.mark.parametrize('out_size,sr,aligned', [(7, 2, True), (5, 3, True),
+                                                 (7, 1, True),
+                                                 (7, 2, False)])
+def test_plain_matches_jax_xla(flatten, out_size, sr, aligned):
+    feats, rois = _data()
+    ref = np.asarray(jra.batched_roi_align(
+        jnp.asarray(feats), jnp.asarray(rois), 1 / 16., out_size, sr,
+        aligned, flatten=flatten))
+    got = tra.batched_roi_align_plain(
+        torch.from_numpy(feats), torch.from_numpy(rois), 1 / 16., out_size,
+        sr, aligned, flatten=flatten, roi_chunk=5).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('flatten', [False, True])
+def test_plain_matches_pallas_fused_interpret(flatten):
+    feats, rois = _data(seed=1, c=8)
+    ref = np.asarray(jpallas.roi_align_fused(
+        jnp.asarray(feats), jnp.asarray(rois), 1 / 16., 7, 2, True, 64, 8,
+        True))
+    if flatten:      # x-major (xbin, ybin, C)
+        ref = ref.transpose(0, 1, 3, 2, 4).reshape(*ref.shape[:2], -1)
+    got = tra.batched_roi_align(torch.from_numpy(feats),
+                                torch.from_numpy(rois), 1 / 16., 7, 2,
+                                flatten=flatten).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_plain_bf16_matches_jax_bf16():
+    """bf16 rounds the weights, the x-interpolated intermediate and the
+    result on both sides; one bf16 ulp of the result (2^-8 relative) is the
+    tolerance."""
+    feats, rois = _data(seed=2)
+    ref = np.asarray(jra.batched_roi_align(
+        jnp.asarray(feats, jnp.bfloat16), jnp.asarray(rois), 1 / 16.,
+        flatten=True).astype(jnp.float32))
+    got = tra.batched_roi_align(
+        torch.from_numpy(feats).bfloat16(), torch.from_numpy(rois), 1 / 16.,
+        flatten=True).float().numpy()
+    np.testing.assert_allclose(got, ref, rtol=2**-7, atol=2**-7)
+
+
+def test_cpu_dispatch_takes_plain_and_counts_nothing():
+    feats, rois = _data(seed=3)
+    before = tra.batched_roi_align.launches
+    out = tra.batched_roi_align(torch.from_numpy(feats),
+                                torch.from_numpy(rois), 1 / 16.)
+    ref = tra.batched_roi_align_plain(torch.from_numpy(feats),
+                                      torch.from_numpy(rois), 1 / 16.)
+    assert torch.equal(out, ref)
+    assert tra.batched_roi_align.launches == before
+
+
+def test_axis_weights_rows_sum_to_valid_fraction():
+    """Each bin's weights sum to the share of its samples inside
+    [-1, len] (mmcv's skip rule), so padded all-zero boxes read the corner
+    pixel and boxes far outside read nothing."""
+    lo = torch.tensor([-0.5, -20.0, 3.2])
+    bins = torch.tensor([0.0, 1.0, 0.7])
+    w = tra._axis_weights(lo, bins, 7, 2, 10)
+    sums = w.sum(-1)
+    assert torch.allclose(sums[0], torch.ones(7))
+    assert torch.equal(sums[1], torch.zeros(7))
+    assert torch.allclose(sums[2], torch.ones(7))

@@ -1,0 +1,106 @@
+"""Detector construction from dict configs (counterpart of the JAX
+package's `models/builder.py`, for the detector types this port has).
+
+`build_detector(cfg)` takes the reference-style nested dict of
+`configs/da/*.py` (`model = dict(type=..., backbone=..., rpn_head=...,
+roi_head=..., train_cfg=..., test_cfg=...)`) or flat module kwargs, and
+translates it as the JAX builder does. Unknown detector types raise, and so
+does any config that asks for a part not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import torch
+
+from ..utils.device import resolve_device
+from ..utils.registry import DETECTORS
+from .dense_heads.rpn_head import ProposalConfig
+from .detectors import da_faster_rcnn, faster_rcnn  # noqa: F401 (register)
+from .detectors.faster_rcnn import AnchorConfig
+from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
+
+# reference detector type name → (registry name, variant kwargs)
+_REFERENCE_DETECTOR_MAP = {
+    'FasterRCNN': ('FasterRCNN', {}),
+    'DAFasterRCNN': ('DAFasterRCNN', dict(variant='daf')),
+    'DAFasterRCNN_Org': ('DAFasterRCNN', dict(variant='daf_org')),
+    'MAFasterRCNN': ('DAFasterRCNN', dict(variant='maf')),
+    'FasterRCNN_SWDA': ('DAFasterRCNN', dict(variant='swda')),
+    'DAFasterRCNN_Deep': ('DAFasterRCNN', dict(variant='deep')),
+    'DAFasterRCNN_Tri': ('DAFasterRCNN', dict(variant='tri')),
+}
+
+
+def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Translate a reference-style nested model dict to module kwargs."""
+    kwargs: Dict[str, Any] = {}
+    backbone = cfg.get('backbone', {})
+    if backbone.get('type', 'ResNet') not in ('ResNet', 'DAResNet') \
+            or backbone.get('trunk_type', 'resnet') != 'resnet':
+        raise NotImplementedError(
+            f'backbone {backbone.get("type")!r}: only the ResNet trunk is '
+            'ported')
+    if 'depth' in backbone:
+        kwargs['backbone_depth'] = backbone['depth']
+    if 'frozen_stages' in backbone:
+        kwargs['frozen_stages'] = backbone['frozen_stages']
+
+    anch = cfg.get('rpn_head', {}).get('anchor_generator', {})
+    if anch:
+        kwargs['anchor_cfg'] = AnchorConfig(
+            scales=tuple(anch.get('scales', (2, 4, 8, 16, 32))),
+            ratios=tuple(anch.get('ratios', (0.5, 1.0, 2.0))),
+            stride=(anch.get('strides', [16]))[0])
+
+    bbox_head = cfg.get('roi_head', {}).get('bbox_head', {})
+    if 'num_classes' in bbox_head:
+        kwargs['num_classes'] = bbox_head['num_classes']
+
+    if cfg.get('train_cfg'):
+        kwargs['roi_train_cfg'] = RoITrainConfig(
+            target_stds=tuple(bbox_head.get('bbox_coder', {}).get(
+                'target_stds', (0.1, 0.1, 0.2, 0.2))),
+            use_sigmoid_cls=bbox_head.get('loss_cls', {}).get(
+                'use_sigmoid', True))
+
+    test_cfg = cfg.get('test_cfg') or {}
+    if test_cfg:
+        tr = test_cfg.get('rpn', {})
+        kwargs['rpn_test_cfg'] = ProposalConfig(
+            nms_pre=min(tr.get('nms_pre', 4096), 8192),
+            max_per_img=tr.get('max_per_img', 1000),
+            nms_iou_threshold=tr.get('nms', {}).get('iou_threshold', 0.7),
+            min_bbox_size=tr.get('min_bbox_size', 0))
+        tc = test_cfg.get('rcnn', {})
+        tc_nms = tc.get('nms', {})
+        if tc_nms.get('type', 'nms') != 'nms':
+            raise NotImplementedError(
+                f'rcnn nms type {tc_nms["type"]!r}: only hard NMS is ported')
+        kwargs['roi_test_cfg'] = RoITestConfig(
+            score_thr=tc.get('score_thr', 0.05),
+            nms_iou_threshold=tc_nms.get('iou_threshold', 0.5),
+            max_per_img=tc.get('max_per_img', 100))
+    return kwargs
+
+
+def build_detector(cfg: Dict[str, Any],
+                   device: Union[str, torch.device] = 'cuda'):
+    """Build a detector module from a config dict (nested or flat) on
+    `device` (CUDA unless the caller asks for the CPU), with torch's default
+    initialization; `apis.init_detector` sets the weights."""
+    device = resolve_device(device)
+    cfg = dict(cfg)
+    det_type = cfg.pop('type')
+    if det_type not in _REFERENCE_DETECTOR_MAP:
+        raise KeyError(f'detector type {det_type!r} is not ported; have '
+                       f'{sorted(_REFERENCE_DETECTOR_MAP)}')
+    reg_name, extra = _REFERENCE_DETECTOR_MAP[det_type]
+    if any(k in cfg for k in ('backbone', 'rpn_head', 'roi_head')):
+        kwargs = _nested_to_kwargs(cfg)
+    else:
+        kwargs = cfg
+    kwargs.update(extra)
+    with device:
+        return DETECTORS.get(reg_name)(**kwargs)

@@ -1,0 +1,116 @@
+"""Faster R-CNN on the single-level DC5 trunk (counterpart of the JAX
+package's `models/detectors/faster_rcnn.py`), inference path.
+
+Batch contract (from `data.pipelines.PackDetInputs` + `data.collate`):
+    image (B, H, W, 3) float32 · img_shape (B, 2) (h, w) int
+Outputs: dets (B, max, 5), labels (B, max), valid (B, max).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...core.anchors.anchor_generator import AnchorGenerator
+from ...utils.registry import DETECTORS
+from ..backbones.resnet import ResNet
+from ..dense_heads.rpn_head import ProposalConfig, RPNHead, rpn_proposals
+from ..roi_heads.bbox_head import Shared2FCBBoxHead
+from ..roi_heads.standard_roi_head import (RoITestConfig, RoITrainConfig,
+                                           roi_head_predict)
+
+
+class AnchorConfig(NamedTuple):
+    """Anchor scales/ratios/stride of the DA configs' RPN."""
+    scales: Tuple[float, ...] = (2, 4, 8, 16, 32)
+    ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    stride: int = 16
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self.scales) * len(self.ratios)
+
+    def grid_anchors(self, feat_h: int, feat_w: int) -> np.ndarray:
+        return _grid_anchors(self, feat_h, feat_w)
+
+
+@functools.lru_cache(maxsize=16)
+def _grid_anchors(cfg: AnchorConfig, feat_h: int, feat_w: int) -> np.ndarray:
+    gen = AnchorGenerator(strides=[cfg.stride], ratios=list(cfg.ratios),
+                          scales=list(cfg.scales))
+    anchors = gen.grid_priors([(feat_h, feat_w)])[0]
+    anchors.setflags(write=False)
+    return anchors
+
+
+@DETECTORS.register_module()
+class FasterRCNN(nn.Module):
+    """Trunk → RPN → proposals → RoIAlign → Shared2FC → multiclass NMS."""
+
+    def __init__(self, num_classes: int = 8, backbone_depth: int = 50,
+                 frozen_stages: int = 1,
+                 anchor_cfg: AnchorConfig = AnchorConfig(),
+                 rpn_test_cfg: ProposalConfig = ProposalConfig(
+                     nms_pre=4096, max_per_img=1000),
+                 roi_train_cfg: RoITrainConfig = RoITrainConfig(),
+                 roi_test_cfg: RoITestConfig = RoITestConfig(),
+                 featmap_stride: int = 16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.anchor_cfg = anchor_cfg
+        self.rpn_test_cfg = rpn_test_cfg
+        self.roi_train_cfg = roi_train_cfg
+        self.roi_test_cfg = roi_test_cfg
+        self.featmap_stride = featmap_stride
+        self.backbone = self._build_backbone(backbone_depth, frozen_stages)
+        width = self._trunk().stage_channels()[-1]
+        self.rpn_head = RPNHead(in_channels=width, feat_channels=2048,
+                                num_anchors=anchor_cfg.num_anchors)
+        self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
+                                           in_channels=width)
+
+    def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
+        return ResNet(depth=depth, strides=(1, 2, 2, 1),
+                      dilations=(1, 1, 1, 2), out_indices=(3,),
+                      frozen_stages=frozen_stages)
+
+    def _trunk(self) -> ResNet:
+        return self.backbone
+
+    def extract_feat(self, image: torch.Tensor) -> torch.Tensor:
+        """image (B, H, W, 3) → stride-16 features (B, C, H/16, W/16); the
+        NHWC batch enters as a channels_last NCHW view."""
+        (feat,) = self.backbone(image.permute(0, 3, 1, 2))
+        return feat
+
+    def _anchors_for(self, feat: torch.Tensor) -> torch.Tensor:
+        h, w = feat.shape[-2], feat.shape[-1]
+        return torch.tensor(self.anchor_cfg.grid_anchors(h, w),
+                            device=feat.device)
+
+    @torch.inference_mode()
+    def predict(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """simple_test flow: RPN proposals → RoI head → per-class NMS."""
+        feat = self.extract_feat(batch['image'].float())
+        anchors = self._anchors_for(feat)
+        rpn_cls, rpn_reg = self.rpn_head(feat)
+        proposals, _, prop_valid = rpn_proposals(
+            rpn_cls, rpn_reg, anchors, batch['img_shape'], self.rpn_test_cfg)
+        return roi_head_predict(
+            self.bbox_head, feat.permute(0, 2, 3, 1).contiguous(), proposals,
+            prop_valid, batch['img_shape'], self.num_classes,
+            self.featmap_stride, reg_class_agnostic=False,
+            target_stds=self.roi_train_cfg.target_stds,
+            use_sigmoid_cls=self.roi_train_cfg.use_sigmoid_cls,
+            cfg=self.roi_test_cfg)
+
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = True):
+        if train:
+            raise NotImplementedError('training slice: the train step is '
+                                      'not ported yet')
+        return self.predict(batch)

@@ -1,0 +1,32 @@
+"""Seeded random weights for a detector without a checkpoint."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .layers.norm import FrozenBatchNorm
+
+
+@torch.no_grad()
+def init_random_weights_(model: nn.Module, generator: torch.Generator
+                         ) -> nn.Module:
+    """Fill `model` in place: conv and linear weights ~ N(0, 1/fan_in)
+    (flax's lecun_normal scale, which keeps activations of order one through
+    a frozen-BN ResNet), biases 0, frozen BN as the identity (scale 1,
+    bias 0, mean 0, var 1). `generator` lives on the model's device."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
+                             generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, FrozenBatchNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+            m.mean.zero_()
+            m.var.fill_(1.0)
+    return model
