@@ -11,18 +11,29 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    limit line.
 2. build — compile every `csrc/*.cu` of the port for sm_90a (one `nvcc` per
    source, in parallel) into `build/kernels/`.
-3. kernels — call each kernel's wrapper at the main path's shapes, hold it
-   against its plain torch version (f32 with TF32 off, and bf16; both output
-   layouts), and time kernel and plain version with CUDA events.
-4. main path — `init_detector` on the flagship config
+3. kernels — call each kernel's wrapper at its main path's shapes, hold it
+   against its plain torch version (f32 with TF32 off, and bf16; both
+   layouts), and time kernel and plain version with CUDA events: the
+   RoIAlign forward at the serving shape, its backward at the training
+   shape.
+4. serving — `init_detector` on the flagship config
    (configs/da/faster_rcnn_r50_daf_c2f.py: DAFasterRCNN, R50-DC5, full
    width) with seeded random weights, then 4 requests of 2 Cityscapes-size
    images through `inference_detector`. The kernel launch counts are set to
    0 just before and read just after; every request must go through each
    kernel. Outputs must be well-formed and finite, and on the last request's
    proposals the kernel's RoI features must match the plain version's.
-5. reference — the tiny-fixture detector on the card against the same
-   weights on the CPU (plain versions), TF32 off.
+5. train — `init_trainer` on the same config (R50-DC5, 'daf', full width,
+   f32) with seeded random weights; 1 warm-up and 5 timed steps, past the
+   lr warmup, on a seeded batch of 2 images of 512x1024 (one source, one
+   target). Every step must
+   give finite losses and launch the RoIAlign forward and backward kernels
+   once each (counts set to 0 before the step, read after). Afterwards the
+   frozen stem and layer1 are bit-identical, every other parameter, the DA
+   heads' BatchNorm statistics and the EMA have moved.
+6. reference — the tiny-fixture detector on the card against the same
+   weights on the CPU (plain versions), TF32 off: inference, and one train
+   step with dropout off and the same sampler priorities.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -38,11 +49,17 @@ import numpy as np
 import torch
 
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis import (
-    inference_detector, init_detector, prepare_batch)
+    inference_detector, init_detector, init_trainer, prepare_batch)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.dense_heads.rpn_head import \
     rpn_proposals
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers.norm import \
+    BatchNorm
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ops import (
     cuda_build, roi_align)
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train import \
+    demo_batch
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.utils.config import \
+    Config
 
 PKG = 'unsupervised_domain_adaptation_object_detection_implementation_tpu_torch'
 FLAGSHIP = 'configs/da/faster_rcnn_r50_daf_c2f.py'
@@ -57,6 +74,15 @@ TOL_F32 = 1e-5
 # intermediate and the result to bf16 (as the JAX package does); the kernel
 # rounds once. Three roundings of 2^-8 each, plus cancellation: 2e-2.
 TOL_BF16 = 2e-2
+# the backward adds up to 16 weighted taps per gradient element into each
+# feature pixel with f32 atomics, in an order that changes from run to run;
+# a pixel sums a few hundred such terms: still a few ulps of the gradient's
+# scale, so the same 1e-5 and 2e-2 hold
+# steps per epoch of the flagship's two-stream loader: Cityscapes' 2975
+# training images, one source and one target image per step
+CITYSCAPES_STEPS = 2975
+FROZEN = ('backbone.trunk.conv1', 'backbone.trunk.bn1',
+          'backbone.trunk.layer1.')
 
 
 def log(*parts):
@@ -126,10 +152,10 @@ def make_rois(gen, b, n, h, w, stride=16):
     return rois.contiguous()
 
 
-def roi_align_work(rois, h, w, c, out_size=7, sr=2, scale=1 / 16):
-    """Bytes and operations this run's RoIAlign needs: output written once,
-    each feature pixel that any nonzero tap reads once, the RoIs; one FMA
-    per nonzero (sample, tap) product and channel, one scale per output."""
+def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16):
+    """What this run's RoIs make RoIAlign touch: the feature pixels any
+    nonzero tap reads, and the nonzero (sample, tap) products over all
+    bins, per channel."""
     wx, wy = zip(*(roi_align._roi_weights(r, scale, out_size, sr, True, h, w)
                    for r in rois))
     touched = sum(int(((y.sum(1) != 0).float().T @ (x.sum(1) != 0).float()
@@ -147,17 +173,65 @@ def roi_align_work(rois, h, w, c, out_size=7, sr=2, scale=1 / 16):
     sc = rois.reshape(-1, 4) * scale
     nx = taps_per_bin(sc[:, 0] - 0.5, (sc[:, 2] - sc[:, 0]) / out_size, w)
     ny = taps_per_bin(sc[:, 1] - 0.5, (sc[:, 3] - sc[:, 1]) / out_size, h)
-    products = int((nx.sum(1) * ny.sum(1)).sum())
-    n_out = rois.shape[0] * rois.shape[1] * out_size * out_size * c
-    nbytes = 4 * (n_out + touched * c) + rois.numel() * 4
-    ops = 2 * products * c + n_out
-    return nbytes, ops
+    return touched, int((nx.sum(1) * ny.sum(1)).sum())
+
+
+def roi_align_work(rois, h, w, c, out_size=7, backward=False):
+    """Bytes and operations this run's RoIAlign needs. Forward: the output
+    written once, each touched feature pixel read once, the RoIs; one FMA
+    per nonzero product and channel, one scale per output. Backward: the
+    output gradient read once, the feature gradient written once, the
+    RoIs (the zeroing pass that the kernel's atomics need is its own
+    overhead, not part of the function); one scale per gradient element,
+    one multiply and one add per nonzero product and channel."""
+    touched, products = roi_align_taps(rois, h, w, out_size)
+    b, n = rois.shape[:2]
+    n_out = b * n * out_size * out_size * c
+    feat_bytes = b * h * w * c if backward else touched * c
+    return 4 * (n_out + feat_bytes) + rois.numel() * 4, \
+        2 * products * c + n_out
+
+
+def _entry(name, replaces, nbytes, ops, **numbers):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS * 1e3
+    return dict(
+        name=name, route='cuda', source=f'{PKG}/csrc/roi_align.cu',
+        replaces='unsupervised_domain_adaptation_object_detection_'
+                 f'implementation_tpu/ops/roi_align_pallas.py:{replaces}',
+        launches=None, **numbers, bound_ms=max(bytes_ms, ops_ms),
+        bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+        library_ms=None)
+
+
+def _check(name, got, ref, tol, what):
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f'{name} {what}: shape {tuple(got.shape)} or '
+                           'non-finite')
+    err = float((got.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    log(f'kernels: {name} {what} max_abs_err={err:.3e} scale={scale:.3f} '
+        f'tol={tol * scale:.3e}')
+    if not err <= tol * scale:
+        raise RuntimeError(f'{name} disagrees with its plain version: '
+                           f'{err} > {tol * scale}')
+    return err
+
+
+def plain_backward(feats, rois, grad, flatten):
+    """d feats of the plain version, by its autograd."""
+    f = feats.detach().requires_grad_()
+    out = roi_align.batched_roi_align_plain(f, rois, 1 / 16, flatten=flatten)
+    return torch.autograd.grad(out, f, grad)[0]
 
 
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(0)
+
+    # forward, at the serving shape
     b, h, w, c, n = 2, 38, 64, 2048, 1000
     feats = torch.randn(b, h, w, c, generator=gen, device='cuda')
     rois = make_rois(gen, b, n, h, w)
@@ -165,22 +239,11 @@ def phase_kernels():
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         f = feats.to(dtype).contiguous()
         for flatten in (True, False):
-            got = roi_align.roi_align_cuda(f, rois, 1 / 16, 7, 2, True,
-                                           flatten).float()
-            ref = roi_align.batched_roi_align_plain(f, rois, 1 / 16, 7, 2,
-                                                    True, flatten).float()
-            torch.cuda.synchronize()
-            if got.shape != ref.shape or not torch.isfinite(got).all():
-                raise RuntimeError(f'roi_align_fwd {dtype} flatten={flatten}'
-                                   f': shape {tuple(got.shape)} or non-finite')
-            err = float((got - ref).abs().max())
-            scale = max(1.0, float(ref.abs().max()))
-            log(f'kernels: roi_align_fwd {str(dtype)[6:]} flatten={flatten} '
-                f'max_abs_err={err:.3e} scale={scale:.3f} '
-                f'tol={tol * scale:.3e}')
-            if not err <= tol * scale:
-                raise RuntimeError(f'roi_align_fwd disagrees with its plain '
-                                   f'version: {err} > {tol * scale}')
+            err = _check('roi_align_fwd', roi_align.roi_align_cuda(
+                f, rois, 1 / 16, 7, 2, True, flatten),
+                roi_align.batched_roi_align_plain(
+                    f, rois, 1 / 16, 7, 2, True, flatten),
+                tol, f'{str(dtype)[6:]} flatten={flatten}')
             if dtype == torch.float32:
                 worst = max(worst, err)
     ms = time_ms(lambda: roi_align.roi_align_cuda(feats, rois, 1 / 16,
@@ -188,21 +251,51 @@ def phase_kernels():
     plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
         feats, rois, 1 / 16, flatten=True), 3, warmup=1)
     nbytes, ops = roi_align_work(rois, h, w, c)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOPS * 1e3
-    entry = dict(
-        name='roi_align_fwd', route='cuda', source=f'{PKG}/csrc/roi_align.cu',
-        replaces='unsupervised_domain_adaptation_object_detection_'
-                 'implementation_tpu/ops/roi_align_pallas.py:63',
-        launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
-        library_ms=None)
+    fwd = _entry('roi_align_fwd', 63, nbytes, ops, max_abs_err=worst,
+                 ms=ms, plain_ms=plain_ms)
     log(f'kernels: roi_align_fwd f32 (2,38,64,2048) x 2x1000 rois flat: '
-        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {entry["bound_ms"]:.4f}'
-        f' ms ({entry["bound_by"]}: {nbytes / 1e6:.1f} MB, '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd["bound_ms"]:.4f}'
+        f' ms ({fwd["bound_by"]}: {nbytes / 1e6:.1f} MB, '
         f'{ops / 1e9:.2f} GFLOP)')
-    return [entry]
+    del feats, rois
+
+    # backward, at the training shape: 512 sampled RoIs per image
+    b, h, w, c, n = 2, 32, 64, 2048, 512
+    feats = torch.randn(b, h, w, c, generator=gen, device='cuda')
+    rois = make_rois(gen, b, n, h, w)
+    grad = torch.randn(b, n, 7 * 7 * c, generator=gen, device='cuda')
+    shape = (b, h, w, c)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        f, g = feats.to(dtype), grad.to(dtype)
+        for flatten in (True, False):
+            gl = g if flatten else \
+                g.reshape(b, n, 7, 7, c).transpose(2, 3).contiguous()
+            err = _check('roi_align_bwd', roi_align.roi_align_bwd_cuda(
+                gl, rois, shape, 1 / 16, flatten=flatten),
+                plain_backward(f, rois, gl, flatten), tol,
+                f'{str(dtype)[6:]} flatten={flatten}')
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            del gl
+    del f, g
+    ms = time_ms(lambda: roi_align.roi_align_bwd_cuda(
+        grad, rois, shape, 1 / 16, flatten=True), 20)
+    f = feats.detach().requires_grad_()
+    out = roi_align.batched_roi_align_plain(f, rois, 1 / 16, flatten=True)
+    plain_ms = time_ms(lambda: torch.autograd.grad(out, f, grad,
+                                                   retain_graph=True),
+                       3, warmup=1)
+    del out, f
+    nbytes, ops = roi_align_work(rois, h, w, c, backward=True)
+    bwd = _entry('roi_align_bwd', 303, nbytes, ops, max_abs_err=worst,
+                 ms=ms, plain_ms=plain_ms)
+    log(f'kernels: roi_align_bwd f32 (2,32,64,2048) x 2x512 rois flat g: '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bwd["bound_ms"]:.4f}'
+        f' ms ({bwd["bound_by"]}: {nbytes / 1e6:.1f} MB, '
+        f'{ops / 1e9:.2f} GFLOP; {(ops - grad.numel()) / 2e9:.2f} G f32 '
+        'atomic adds)')
+    return [fwd, bwd]
 
 
 def _check_result(res, shape_hw, num_classes, max_det):
@@ -268,7 +361,8 @@ def phase_main_path(card, kernels):
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     for entry in kernels:
-        entry['launches'] = launches[entry['name']]
+        if entry['name'] in launches:
+            entry['launches'] = launches[entry['name']]
     total_s = sum(latencies) / 1e3
     log(f'main: 4 requests x 2 images 1024x2048 -> {n_dets} dets; latency '
         f'ms {[round(x, 2) for x in latencies]} mean '
@@ -300,6 +394,93 @@ def phase_main_path(card, kernels):
                 peak_bytes=peak)
 
 
+def phase_train(card, kernels):
+    # training runs with PyTorch's defaults, as serving does: cuDNN
+    # convolutions in TF32, matrix products in full f32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    trainer = init_trainer(FLAGSHIP, device='cuda', seed=0,
+                           steps_per_epoch=CITYSCAPES_STEPS)
+    model, params = trainer.model, trainer.state.params
+    torch.cuda.synchronize()
+    log(f'train: init_trainer {FLAGSHIP} on cuda in '
+        f'{time.perf_counter() - t0:.2f} s; '
+        f'{sum(p.numel() for p in params.values()) / 1e6:.1f} M params, '
+        f'{sum(p.numel() for p in params.values() if p.requires_grad) / 1e6:.1f}'
+        f' M trainable; {trainer.spec}')
+    batch = demo_batch()                # 2 images of 512x1024, on the card
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    start = {n: p.detach().clone() for n, p in params.items()}
+    da_stats = {f'{m_name}.{b}': getattr(m, b).clone()
+                for m_name, m in model.named_modules()
+                if isinstance(m, BatchNorm) for b in ('mean', 'var')}
+    if not da_stats:
+        raise RuntimeError('no DA-head BatchNorm in the model')
+
+    counters = {'roi_align_fwd': roi_align.batched_roi_align,
+                'roi_align_bwd': roi_align.roi_align_bwd_cuda}
+    totals = dict.fromkeys(counters, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # past the 500-step warmup, at the schedule's full lr: an update at the
+    # first steps' lr (1e-7) is below f32 resolution for many parameters
+    state, times = trainer.state, []
+    state = state._replace(opt_state=state.opt_state._replace(count=500))
+    for i in range(6):                  # 1 warm-up + 5 timed steps
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        for name, fn in counters.items():
+            if fn.launches != 1:
+                raise RuntimeError(f'train step {i}: {name} launched '
+                                   f'{fn.launches} times, expected 1')
+            totals[name] += fn.launches
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()) \
+                or values['skipped_nonfinite']:
+            raise RuntimeError(f'train step {i}: {values}')
+        if i:
+            times.append(ms)
+        log(f'train: step {i} {ms:.1f} ms ' + ' '.join(
+            f'{k}={v:.4f}' for k, v in values.items()))
+    peak = torch.cuda.max_memory_allocated()
+
+    # the EMA follows the parameters (its decay ramps up from ~0, so after 6
+    # steps it sits within a few ulps of them on many leaves) but is not them
+    moved = ema_apart = 0
+    for n, p in params.items():
+        same = torch.equal(p.detach(), start[n])
+        if n.startswith(FROZEN) != same:
+            raise RuntimeError(f'{n}: {"unchanged" if same else "changed"} '
+                               'after 6 steps')
+        moved += not same
+        if not same and torch.equal(state.ema_params[n], start[n]):
+            raise RuntimeError(f'{n}: the EMA did not follow the parameter')
+        ema_apart += not same and \
+            not torch.equal(state.ema_params[n], p.detach())
+    if not ema_apart:
+        raise RuntimeError('the EMA equals the parameters on every leaf')
+    for n, v in da_stats.items():
+        if torch.equal(model.get_buffer(n), v):
+            raise RuntimeError(f'{n}: DA-head BatchNorm statistic unchanged')
+    for entry in kernels:
+        if entry['name'] == 'roi_align_bwd':
+            entry['launches'] = totals['roi_align_bwd']
+    med = float(np.median(times))
+    log(f'train: 5 steps x 2 images 512x1024 (R50-DC5 daf f32): step ms '
+        f'{[round(t, 2) for t in times]} median {med:.2f} min '
+        f'{min(times):.2f} max {max(times):.2f}; {2e3 / med:.2f} img/s; '
+        f'peak memory {peak / 2**30:.2f} GiB; launches {totals} over 6 '
+        f'steps; {moved} parameters moved, stem and layer1 unchanged, EMA '
+        f'apart from {ema_apart} of them, {len(da_stats)} DA BatchNorm '
+        f'statistics moved [{card}]')
+    return dict(step_ms=times, img_per_s=2e3 / med, peak_bytes=peak)
+
+
 def phase_reference():
     """Tiny fixture detector: card (kernels) vs CPU (plain versions)."""
     torch.backends.cudnn.allow_tf32 = False
@@ -328,13 +509,61 @@ def phase_reference():
         raise RuntimeError(f'card and CPU disagree: {worst}')
 
 
+def phase_reference_train():
+    """One tiny-fixture train step on the card (kernels) against the same
+    step on the CPU (plain versions), from the same weights, TF32 off,
+    dropout off and the same sampler priorities. Per-term losses within
+    1e-4 relative and updated parameters within 1e-4 of scale: the two
+    sides sum in other orders, the RoIAlign backward with atomics."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(TINY)
+    cfg.merge_from_dict({'optimizer.lr': 0.002,
+                         'lr_config.warmup_ratio': 0.5})
+    # one step at step count 0: the epoch length only places the decay
+    trainers = [init_trainer(cfg, device=d, seed=3, steps_per_epoch=1)
+                for d in ('cpu', 'cuda')]
+    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    batch = demo_batch(2, 64, 96, g=6, num_classes=2, seed=4, device='cpu')
+    gen = torch.Generator().manual_seed(5)
+    pri = dict(rpn=torch.rand(2, 4 * 6 * 6, generator=gen),
+               rcnn=torch.rand(2, 6 + 64, generator=gen))
+    results = []
+    for trainer in trainers:
+        for m in trainer.model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        dev = trainer.device
+        _, metrics = trainer.step(
+            trainer.state, {k: v.to(dev) for k, v in batch.items()},
+            sampler_priorities={k: v.to(dev) for k, v in pri.items()})
+        results.append(({k: float(v) for k, v in metrics.items()},
+                        {n: t.detach().cpu() for n, t in
+                         trainer.model.state_dict().items()}))
+    (ref_l, ref_p), (got_l, got_p) = results
+    rel = max(abs(got_l[k] - v) / max(abs(v), 1e-6) for k, v in ref_l.items())
+    err = max(float((got_p[n] - v).abs().max()) /
+              max(1.0, float(v.abs().max())) for n, v in ref_p.items())
+    log(f'reference: tiny fixture train step card vs CPU: losses '
+        f'{ {k: round(v, 5) for k, v in got_l.items()} }, worst relative '
+        f'loss difference {rel:.3e}, worst parameter difference {err:.3e} '
+        'of scale')
+    if set(got_l) != set(ref_l) or not rel <= 1e-4 or not err <= 1e-4:
+        raise RuntimeError(f'train step card vs CPU: losses {rel}, '
+                           f'params {err}')
+
+
 def main():
     card = phase_device()
     phase_build()
     kernels = phase_kernels()
     phase_main_path(card, kernels)
+    phase_train(card, kernels)
     phase_reference()
+    phase_reference_train()
     for k in kernels:
+        if not k['launches']:
+            raise RuntimeError(f'{k["name"]} was not launched on its path')
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):
                 raise RuntimeError(f'{k["name"]}.{key} = {v}')

@@ -71,12 +71,16 @@ def tiny():
 
 
 def test_converter_leaves_exactly_the_da_heads(tiny):
+    """Every leaf maps now, the DA heads' params and batch_stats too: the
+    set of leaves left over is empty."""
     _, variables, bundle = tiny
     state, unmapped = convert.from_jax_variables(variables, bundle.model)
-    expected = {p for p in _leaf_paths(variables) if p.startswith(DA_HEADS)}
-    assert expected
-    assert set(unmapped) == expected
+    heads = {p for p in _leaf_paths(variables) if p.startswith(DA_HEADS)}
+    assert heads
+    assert unmapped == []
     assert set(state) == set(bundle.model.state_dict())
+    assert {p.split('/', 1)[1].replace('/', '.').rsplit('.', 1)[0]
+            for p in heads} <= {k.rsplit('.', 1)[0] for k in state}
 
 
 @pytest.mark.parametrize('det_type', ['DAFasterRCNN', 'FasterRCNN'])

@@ -6,6 +6,7 @@ summation order differs."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,15 +69,54 @@ def test_plain_bf16_matches_jax_bf16():
     np.testing.assert_allclose(got, ref, rtol=2**-7, atol=2**-7)
 
 
+@pytest.mark.parametrize('flatten', [False, True])
+def test_plain_backward_matches_jax_grad(flatten):
+    """d feats of the port's plain version (its autograd, through
+    `batched_roi_align` on the CPU) against `jax.grad` of the XLA
+    `batched_roi_align` and of the Pallas `roi_align_fused` in interpret
+    mode, whose backward is the `_fused_bwd` kernel. Each feature pixel sums
+    a few dozen weighted cotangents in another order on each side: 1e-5 of
+    the gradient's scale. rois get no gradient."""
+    feats, rois = _data(seed=4, c=8)
+    rs = np.random.RandomState(5)
+    n = rois.shape[1]
+    cot5 = rs.standard_normal((2, n, 7, 7, 8)).astype(np.float32)
+    cot = cot5.transpose(0, 1, 3, 2, 4).reshape(2, n, -1) if flatten \
+        else cot5
+
+    def xla(f):
+        return jnp.sum(jra.batched_roi_align(
+            f, jnp.asarray(rois), 1 / 16., 7, 2, True, flatten=flatten) * cot)
+
+    def pallas(f):
+        return jnp.sum(jpallas.roi_align_fused(
+            f, jnp.asarray(rois), 1 / 16., 7, 2, True, 64, 8, True) * cot5)
+
+    ft = torch.from_numpy(feats).requires_grad_()
+    rt = torch.from_numpy(rois).requires_grad_()
+    out = tra.batched_roi_align(ft, rt, 1 / 16., 7, 2, flatten=flatten)
+    got, grois = torch.autograd.grad((out * torch.from_numpy(cot)).sum(),
+                                     [ft, rt], allow_unused=True)
+    assert grois is None
+    for fn in (xla, pallas):
+        ref = np.asarray(jax.grad(fn)(jnp.asarray(feats)))
+        assert np.abs(ref).max() > 1.0
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
 def test_cpu_dispatch_takes_plain_and_counts_nothing():
     feats, rois = _data(seed=3)
     before = tra.batched_roi_align.launches
-    out = tra.batched_roi_align(torch.from_numpy(feats),
-                                torch.from_numpy(rois), 1 / 16.)
+    before_bwd = tra.roi_align_bwd_cuda.launches
+    ft = torch.from_numpy(feats).requires_grad_()
+    out = tra.batched_roi_align(ft, torch.from_numpy(rois), 1 / 16.)
     ref = tra.batched_roi_align_plain(torch.from_numpy(feats),
                                       torch.from_numpy(rois), 1 / 16.)
-    assert torch.equal(out, ref)
+    assert torch.equal(out.detach(), ref)
+    out.sum().backward()
     assert tra.batched_roi_align.launches == before
+    assert tra.roi_align_bwd_cuda.launches == before_bwd
 
 
 def test_axis_weights_rows_sum_to_valid_fraction():

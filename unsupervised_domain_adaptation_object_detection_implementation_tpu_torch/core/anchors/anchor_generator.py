@@ -101,3 +101,20 @@ class AnchorGenerator:
                           axis=-1)
         all_anchors = base_anchors[None, :, :] + shifts[:, None, :]
         return all_anchors.reshape(-1, 4)
+
+
+def anchor_inside_flags(anchors, img_shape, allowed_border: int = 0):
+    """Flags for anchors (..., 4) lying inside the (h, w) of `img_shape`
+    (..., 2) within `allowed_border` (torch counterpart of the JAX package's
+    `anchor_inside_flags`); leading dims broadcast, so (B, 1, 2) shapes
+    against (N, 4) anchors give (B, N). With `allowed_border < 0` every
+    anchor is inside."""
+    import torch
+    h, w = img_shape[..., 0], img_shape[..., 1]
+    if allowed_border < 0:
+        return torch.ones(anchors.shape[:-1], dtype=torch.bool,
+                          device=anchors.device)
+    return ((anchors[..., 0] >= -allowed_border) &
+            (anchors[..., 1] >= -allowed_border) &
+            (anchors[..., 2] < w + allowed_border) &
+            (anchors[..., 3] < h + allowed_border))

@@ -7,7 +7,7 @@ RGB torch tensor — uint8 until `Normalize`, float32 after — on whatever
 device the caller put it. On a card the whole chain runs there. Meta entries
 (`img_shape`, `scale_factor`, gt blocks) are small numpy arrays, as in the
 JAX package. Training-time transforms (flip, crops, photometric jitter,
-multi-scale resize) come with the training slice.
+multi-scale resize) come with the dataset and loader.
 """
 
 from __future__ import annotations
@@ -103,7 +103,7 @@ class Resize:
         if isinstance(img_scale, (list, tuple)) and img_scale \
                 and isinstance(img_scale[0], (list, tuple)):
             raise NotImplementedError('multi-scale Resize comes with the '
-                                      'training slice')
+                                      'train transforms')
         self.img_scale = tuple(img_scale)
         self.keep_ratio = keep_ratio
 

@@ -1,11 +1,13 @@
 """Domain-adaptive ResNet trunk (counterpart of the JAX package's
-`models/backbones/da_resnet.py`), inference part.
+`models/backbones/da_resnet.py`).
 
 The trunk is the JAX one's: a `ResNet` named `trunk`, so the converted
-weights load as `backbone.trunk.*`. The GRL alignment heads that the `taps`
-name (pixel / global / srm / image) are training-time only and are not
-ported yet: `with_da=False` returns the trunk's outputs exactly as the JAX
-module does at inference, and asking for the heads raises.
+weights load as `backbone.trunk.*`. Each entry of `taps` puts a GRL
+alignment head on a stage, named `{kind}_s{stage}_{i}` as in the JAX
+module (so its weights load as `backbone.pixel_s1_0.*`). `with_da=False`
+(inference) skips the heads. The 'pixel' and CBAM 'global' heads are ported
+(the 'daf', 'swda' and 'deep' variants); 'srm', 'image' and MHSA 'global'
+taps come with their variants, and `with_da=True` raises for them.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from ...utils.registry import BACKBONES
+from ..da.heads import GlobalAlignmentHead, PixelAlignmentHead
 from .resnet import ResNet
 
 
@@ -40,8 +43,7 @@ VARIANT_TAPS: Dict[str, Tuple[Tap, ...]] = {
 
 @BACKBONES.register_module()
 class DAResNet(nn.Module):
-    """Detection trunk; the per-stage alignment heads wait for the
-    training slice."""
+    """Detection trunk + per-stage GRL alignment heads."""
 
     def __init__(self, depth: int = 50,
                  strides: Sequence[int] = (1, 2, 2, 1),
@@ -60,13 +62,30 @@ class DAResNet(nn.Module):
                             dilations=tuple(dilations),
                             out_indices=self.out_indices,
                             frozen_stages=frozen_stages)
+        channels = self.trunk.stage_channels()
+        self.tap_names = tuple(f'{t.kind}_s{t.stage}_{i}'
+                               for i, t in enumerate(self.taps))
+        self._missing = []
+        for name, tap in zip(self.tap_names, self.taps):
+            if tap.kind == 'pixel':
+                self.add_module(name, PixelAlignmentHead(channels[tap.stage]))
+            elif tap.kind == 'global' and tap.attention in ('cbam', None):
+                self.add_module(name, GlobalAlignmentHead(
+                    channels[tap.stage], attention=tap.attention))
+            else:
+                self._missing.append(name)
 
     def forward(self, x: torch.Tensor, with_da: bool = True):
-        """x: (B, 3, H, W). Returns (outs, da_out); only `with_da=False`
-        (inference: no alignment heads, `da_out` empty) is ported."""
-        if with_da:
+        """x: (B, 3, H, W). Returns (outs, da_out): the stage outputs at
+        `out_indices` and, with `with_da`, each tap's head output by name —
+        (B, 2) global logits or (B, H, W, 1) pixel logit maps."""
+        if with_da and self._missing:
             raise NotImplementedError(
-                'training slice: the DA alignment heads '
-                f'{[t.kind for t in self.taps]} are not ported yet')
+                f'DA taps {self._missing} (srm / image / MHSA heads) are not '
+                'ported yet; they come with the other DA variants')
         stages = self.trunk(x, return_all_stages=True)
-        return tuple(stages[i] for i in self.out_indices), {}
+        outs = tuple(stages[i] for i in self.out_indices)
+        if not with_da:
+            return outs, {}
+        return outs, {name: getattr(self, name)(stages[tap.stage])
+                      for name, tap in zip(self.tap_names, self.taps)}

@@ -101,8 +101,9 @@ class ResNet(nn.Module):
     padding) → four stages; the first block of a stage downsamples when its
     stride is not 1 or its channels change.
 
-    `frozen_stages` only matters for training, which this port does not do
-    yet; it is kept so configs load unchanged.
+    `frozen_stages` (as the JAX trunk): with it >= 0 the stem's output is
+    detached and its parameters freeze, and so are stages 1..frozen_stages
+    (their outputs detached, their parameters `requires_grad=False`).
     """
 
     def __init__(self, depth: int = 50, base_channels: int = 64,
@@ -140,6 +141,11 @@ class ResNet(nn.Module):
             channels.append(out_ch)
         self.num_stages = num_stages
         self._stage_channels = tuple(channels)
+        if frozen_stages >= 0:
+            frozen = [self.conv1, self.bn1] + [
+                getattr(self, f'layer{i}') for i in range(1, frozen_stages + 1)]
+            for m in frozen:
+                m.requires_grad_(False)
 
     def stage_channels(self) -> Tuple[int, ...]:
         return self._stage_channels
@@ -148,9 +154,13 @@ class ResNet(nn.Module):
         """x: (B, 3, H, W) normalized. Returns the tuple of stage outputs at
         `out_indices` (all four with `return_all_stages`)."""
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        if self.frozen_stages >= 0:
+            x = x.detach()
         stage_outs = []
         for i in range(self.num_stages):
             x = getattr(self, f'layer{i + 1}')(x)
+            if self.frozen_stages >= i + 1:
+                x = x.detach()
             stage_outs.append(x)
         if return_all_stages:
             return tuple(stage_outs)

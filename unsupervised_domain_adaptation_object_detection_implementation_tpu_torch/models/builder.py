@@ -16,7 +16,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.registry import DETECTORS
-from .dense_heads.rpn_head import ProposalConfig
+from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
 from .detectors import da_faster_rcnn, faster_rcnn  # noqa: F401 (register)
 from .detectors.faster_rcnn import AnchorConfig
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
@@ -24,13 +24,25 @@ from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
 # reference detector type name → (registry name, variant kwargs)
 _REFERENCE_DETECTOR_MAP = {
     'FasterRCNN': ('FasterRCNN', {}),
-    'DAFasterRCNN': ('DAFasterRCNN', dict(variant='daf')),
-    'DAFasterRCNN_Org': ('DAFasterRCNN', dict(variant='daf_org')),
-    'MAFasterRCNN': ('DAFasterRCNN', dict(variant='maf')),
-    'FasterRCNN_SWDA': ('DAFasterRCNN', dict(variant='swda')),
-    'DAFasterRCNN_Deep': ('DAFasterRCNN', dict(variant='deep')),
-    'DAFasterRCNN_Tri': ('DAFasterRCNN', dict(variant='tri')),
+    'DAFasterRCNN': ('DAFasterRCNN', dict(variant='daf',
+                                          instance_mode='grouped')),
+    'DAFasterRCNN_Org': ('DAFasterRCNN', dict(variant='daf_org',
+                                              instance_mode='plain')),
+    'MAFasterRCNN': ('DAFasterRCNN', dict(variant='maf',
+                                          instance_mode='split_plain')),
+    'FasterRCNN_SWDA': ('DAFasterRCNN', dict(variant='swda',
+                                             instance_mode='grouped')),
+    'DAFasterRCNN_Deep': ('DAFasterRCNN', dict(variant='deep',
+                                               instance_mode='grouped')),
+    'DAFasterRCNN_Tri': ('DAFasterRCNN', dict(variant='tri',
+                                              instance_mode='grouped',
+                                              group_k=10)),
 }
+
+# reference bbox_head.loss_bbox types that decode boxes (the IoU family);
+# the port has only the smooth-L1 'l1' regression loss, and these raise
+_REG_LOSS_MAP = {'IoULoss': 'iou', 'GIoULoss': 'giou', 'CIoULoss': 'ciou',
+                 'DIoULoss': 'diou', 'BoundedIoULoss': 'bounded_iou'}
 
 
 def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -58,12 +70,46 @@ def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     if 'num_classes' in bbox_head:
         kwargs['num_classes'] = bbox_head['num_classes']
 
-    if cfg.get('train_cfg'):
+    train_cfg = cfg.get('train_cfg') or {}
+    if train_cfg:
+        r = train_cfg.get('rpn', {})
+        a = r.get('assigner', {})
+        s = r.get('sampler', {})
+        kwargs['rpn_train_cfg'] = RPNTrainConfig(
+            pos_iou_thr=a.get('pos_iou_thr', 0.7),
+            neg_iou_thr=a.get('neg_iou_thr', 0.3),
+            min_pos_iou=a.get('min_pos_iou', 0.3),
+            match_low_quality=a.get('match_low_quality', True),
+            num_samples=s.get('num', 256),
+            pos_fraction=s.get('pos_fraction', 0.5),
+            allowed_border=r.get('allowed_border', 0))
+        p = train_cfg.get('rpn_proposal', {})
+        if p:
+            kwargs['rpn_proposal_cfg'] = ProposalConfig(
+                nms_pre=min(p.get('nms_pre', 4096), 8192),
+                max_per_img=p.get('max_per_img', 2000),
+                nms_iou_threshold=p.get('nms', {}).get('iou_threshold', 0.7),
+                min_bbox_size=p.get('min_bbox_size', 0))
+        rc = train_cfg.get('rcnn', {})
+        ra = rc.get('assigner', {})
+        rs = rc.get('sampler', {})
+        loss_bbox = bbox_head.get('loss_bbox', {})
         kwargs['roi_train_cfg'] = RoITrainConfig(
+            pos_iou_thr=ra.get('pos_iou_thr', 0.5),
+            neg_iou_thr=ra.get('neg_iou_thr', 0.5),
+            min_pos_iou=ra.get('min_pos_iou', 0.5),
+            match_low_quality=ra.get('match_low_quality', False),
+            num_samples=rs.get('num', 512),
+            pos_fraction=rs.get('pos_fraction', 0.25),
+            add_gt_as_proposals=rs.get('add_gt_as_proposals', True),
             target_stds=tuple(bbox_head.get('bbox_coder', {}).get(
                 'target_stds', (0.1, 0.1, 0.2, 0.2))),
             use_sigmoid_cls=bbox_head.get('loss_cls', {}).get(
-                'use_sigmoid', True))
+                'use_sigmoid', True),
+            sampler_type=('ohem' if rs.get('type') == 'OHEMSampler'
+                          else 'random'),
+            reg_loss=_REG_LOSS_MAP.get(loss_bbox.get('type'), 'l1'),
+            reg_loss_weight=loss_bbox.get('loss_weight', 1.0))
 
     test_cfg = cfg.get('test_cfg') or {}
     if test_cfg:

@@ -1,27 +1,36 @@
 """Faster R-CNN on the single-level DC5 trunk (counterpart of the JAX
-package's `models/detectors/faster_rcnn.py`), inference path.
+package's `models/detectors/faster_rcnn.py`): losses and inference.
 
 Batch contract (from `data.pipelines.PackDetInputs` + `data.collate`):
     image (B, H, W, 3) float32 · img_shape (B, 2) (h, w) int
-Outputs: dets (B, max, 5), labels (B, max), valid (B, max).
+    and, to train: gt_bboxes (B, G, 4) · gt_labels (B, G) · gt_valid (B, G)
+    · domain (B,)
+Inference outputs: dets (B, max, 5), labels (B, max), valid (B, max).
+
+The samplers draw their priorities from the `generator` the caller passes,
+or take them from `sampler_priorities` = dict(rpn=(B, N anchors),
+rcnn=(B, G + P candidates)), as the parity tests do.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ...core.anchors.anchor_generator import AnchorGenerator
 from ...utils.registry import DETECTORS
 from ..backbones.resnet import ResNet
-from ..dense_heads.rpn_head import ProposalConfig, RPNHead, rpn_proposals
+from ..dense_heads.rpn_head import (ProposalConfig, RPNHead, RPNTrainConfig,
+                                    rpn_loss, rpn_proposals)
 from ..roi_heads.bbox_head import Shared2FCBBoxHead
 from ..roi_heads.standard_roi_head import (RoITestConfig, RoITrainConfig,
-                                           roi_head_predict)
+                                           bbox_loss, extract_roi_feats,
+                                           roi_head_predict, sample_rois)
 
 
 class AnchorConfig(NamedTuple):
@@ -54,6 +63,8 @@ class FasterRCNN(nn.Module):
     def __init__(self, num_classes: int = 8, backbone_depth: int = 50,
                  frozen_stages: int = 1,
                  anchor_cfg: AnchorConfig = AnchorConfig(),
+                 rpn_train_cfg: RPNTrainConfig = RPNTrainConfig(),
+                 rpn_proposal_cfg: ProposalConfig = ProposalConfig(),
                  rpn_test_cfg: ProposalConfig = ProposalConfig(
                      nms_pre=4096, max_per_img=1000),
                  roi_train_cfg: RoITrainConfig = RoITrainConfig(),
@@ -62,6 +73,8 @@ class FasterRCNN(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.anchor_cfg = anchor_cfg
+        self.rpn_train_cfg = rpn_train_cfg
+        self.rpn_proposal_cfg = rpn_proposal_cfg
         self.rpn_test_cfg = rpn_test_cfg
         self.roi_train_cfg = roi_train_cfg
         self.roi_test_cfg = roi_test_cfg
@@ -92,6 +105,49 @@ class FasterRCNN(nn.Module):
         return torch.tensor(self.anchor_cfg.grid_anchors(h, w),
                             device=feat.device)
 
+    def loss(self, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             sampler_priorities: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Dict[str, torch.Tensor]:
+        with record_function('step/trunk'):
+            feat = self.extract_feat(batch['image'].float())
+        return self._det_losses(feat, batch, None, generator,
+                                sampler_priorities)[0]
+
+    def _det_losses(self, feat, batch, loss_weight_mask, generator,
+                    sampler_priorities):
+        """Supervised RPN + RoI losses; returns (losses, sampled RoIs, class
+        scores, shared-FC features). Proposals come from the detached RPN
+        outputs. Each stage is a `step/...` profiler range."""
+        pri = sampler_priorities or {}
+        with record_function('step/rpn_head_and_loss'):
+            anchors = self._anchors_for(feat)
+            rpn_cls, rpn_reg = self.rpn_head(feat)
+            losses = rpn_loss(rpn_cls, rpn_reg, anchors, batch['gt_bboxes'],
+                              batch['gt_valid'], batch['img_shape'],
+                              self.rpn_train_cfg, loss_weight_mask,
+                              priorities=pri.get('rpn'), generator=generator)
+        with torch.no_grad():
+            with record_function('step/proposals'):
+                proposals, _, prop_valid = rpn_proposals(
+                    rpn_cls.detach(), rpn_reg.detach(), anchors,
+                    batch['img_shape'], self.rpn_proposal_cfg)
+            with record_function('step/roi_sampling'):
+                sampled = sample_rois(
+                    proposals, prop_valid, batch['gt_bboxes'],
+                    batch['gt_labels'], batch['gt_valid'], self.num_classes,
+                    self.roi_train_cfg, priorities=pri.get('rcnn'),
+                    generator=generator)
+        with record_function('step/roi_align_fwd'):
+            roi_feats = extract_roi_feats(
+                feat.permute(0, 2, 3, 1).contiguous(), sampled.rois,
+                self.featmap_stride, flatten=True)
+        with record_function('step/bbox_head_and_loss'):
+            cls, reg, shared_feat = self.bbox_head(roi_feats)
+            losses.update(bbox_loss(cls, reg, sampled, self.num_classes,
+                                    self.roi_train_cfg, loss_weight_mask))
+        return losses, sampled, cls, shared_feat
+
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -109,8 +165,10 @@ class FasterRCNN(nn.Module):
             use_sigmoid_cls=self.roi_train_cfg.use_sigmoid_cls,
             cfg=self.roi_test_cfg)
 
-    def forward(self, batch: Dict[str, torch.Tensor], train: bool = True):
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = True,
+                generator: Optional[torch.Generator] = None,
+                sampler_priorities: Optional[Dict[str, torch.Tensor]] = None):
+        """The loss dict with `train`, else `predict`."""
         if train:
-            raise NotImplementedError('training slice: the train step is '
-                                      'not ported yet')
+            return self.loss(batch, generator, sampler_priorities)
         return self.predict(batch)

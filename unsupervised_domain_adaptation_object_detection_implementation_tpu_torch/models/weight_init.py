@@ -7,7 +7,7 @@ import math
 import torch
 from torch import nn
 
-from .layers.norm import FrozenBatchNorm
+from .layers.norm import BatchNorm, FrozenBatchNorm
 
 
 @torch.no_grad()
@@ -15,8 +15,9 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
                          ) -> nn.Module:
     """Fill `model` in place: conv and linear weights ~ N(0, 1/fan_in)
     (flax's lecun_normal scale, which keeps activations of order one through
-    a frozen-BN ResNet), biases 0, frozen BN as the identity (scale 1,
-    bias 0, mean 0, var 1). `generator` lives on the model's device."""
+    a frozen-BN ResNet), biases 0, frozen and live BN (the DA heads') as
+    the identity (scale 1, bias 0, mean 0, var 1). `generator` lives on
+    the model's device."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -24,7 +25,7 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
                              generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, FrozenBatchNorm):
+        elif isinstance(m, (FrozenBatchNorm, BatchNorm)):
             m.scale.fill_(1.0)
             m.bias.zero_()
             m.mean.zero_()

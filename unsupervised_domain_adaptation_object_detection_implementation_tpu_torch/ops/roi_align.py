@@ -13,10 +13,13 @@ JAX package.
   then two products. It is what the CPU runs, and the yardstick the kernel
   is held against on the card.
 - :func:`batched_roi_align` is the entry point. For tensors on the CPU it
-  runs the plain version; for CUDA tensors it launches the hand-written
-  kernel `csrc/roi_align.cu` (or raises) and counts the launch in
-  `batched_roi_align.launches`. The op is inference-only in this port so
-  far: a CUDA input that requires grad raises.
+  runs the plain version, whose autograd is the plain backward. For CUDA
+  tensors it launches the hand-written kernels of `csrc/roi_align.cu` (or
+  raises): the forward `roi_align_fwd`, counted in
+  `batched_roi_align.launches`, and, when feats need a gradient, the
+  backward `roi_align_bwd` through :class:`RoIAlignFunction`, counted in
+  `roi_align_bwd_cuda.launches`. rois get no gradient, as in the JAX
+  package.
 
 `flatten=True` returns (B, R, o*o*C) in x-major (xbin, ybin, C) order, the
 order the Shared2FC head's first layer expects (the JAX package chose it
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -123,43 +127,47 @@ _VEC = {torch.float32: 4, torch.bfloat16: 8}
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = cuda_build.load('roi_align.cu')
-    fn = lib.roi_align_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.roi_align_fwd, lib.roi_align_bwd):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_kernel_args(x: torch.Tensor, rois: torch.Tensor, batch: int,
+                       out_size: int, sampling_ratio: int) -> None:
+    """Raise on anything the kernels of `csrc/roi_align.cu` do not take; `x`
+    is the forward's feats or the backward's output gradient."""
+    if x.device.type != 'cuda' or rois.device != x.device:
+        raise ValueError(f'tensors must be on one CUDA device, got '
+                         f'{x.device} and rois on {rois.device}')
+    if rois.dim() != 3 or rois.shape[-1] != 4 or rois.shape[0] != batch:
+        raise ValueError(f'expected rois ({batch},R,4), got '
+                         f'{tuple(rois.shape)}')
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f'dtype {x.dtype} not supported (float32, bfloat16)')
+    if rois.dtype != torch.float32:
+        raise TypeError(f'rois must be float32, got {rois.dtype}')
+    if not (x.is_contiguous() and rois.is_contiguous()):
+        raise ValueError('tensors must be contiguous (NHWC feats)')
+    if out_size * sampling_ratio > 64 or out_size < 1 or sampling_ratio < 1:
+        raise ValueError(f'out_size {out_size} x sampling_ratio '
+                         f'{sampling_ratio} outside the kernel (<= 64)')
 
 
 def roi_align_cuda(feats: torch.Tensor, rois: torch.Tensor,
                    spatial_scale: float, out_size: int = 7,
                    sampling_ratio: int = 2, aligned: bool = True,
                    flatten: bool = False) -> torch.Tensor:
-    """Launch `csrc/roi_align.cu` on CUDA tensors; raise on anything the
-    kernel does not take."""
-    if feats.device.type != 'cuda' or rois.device != feats.device:
-        raise ValueError(f'feats and rois must be on one CUDA device, got '
-                         f'{feats.device} and {rois.device}')
-    if feats.requires_grad or rois.requires_grad:
-        raise NotImplementedError(
-            'RoIAlign backward on CUDA is not ported yet (training slice); '
-            'call under torch.no_grad()')
-    if feats.dim() != 4 or rois.dim() != 3 or rois.shape[-1] != 4 \
-            or rois.shape[0] != feats.shape[0]:
-        raise ValueError(f'expected feats (B,H,W,C) and rois (B,R,4), got '
-                         f'{tuple(feats.shape)} and {tuple(rois.shape)}')
-    if feats.dtype not in _DTYPE_CODES:
-        raise TypeError(f'feats dtype {feats.dtype} not supported '
-                        '(float32, bfloat16)')
-    if rois.dtype != torch.float32:
-        raise TypeError(f'rois must be float32, got {rois.dtype}')
-    if not (feats.is_contiguous() and rois.is_contiguous()):
-        raise ValueError('feats and rois must be contiguous (NHWC feats)')
-    if out_size * sampling_ratio > 64 or out_size < 1 or sampling_ratio < 1:
-        raise ValueError(f'out_size {out_size} x sampling_ratio '
-                         f'{sampling_ratio} outside the kernel (<= 64)')
+    """Launch the forward kernel `roi_align_fwd` on CUDA tensors; raise on
+    anything it does not take. Records no gradient."""
+    if feats.dim() != 4:
+        raise ValueError(f'expected feats (B,H,W,C), got '
+                         f'{tuple(feats.shape)}')
+    _check_kernel_args(feats, rois, feats.shape[0], out_size, sampling_ratio)
     b, h, w, c = feats.shape
     n = rois.shape[1]
     shape = (b, n, out_size * out_size * c) if flatten else \
@@ -183,6 +191,69 @@ def roi_align_cuda(feats: torch.Tensor, rois: torch.Tensor,
     return out
 
 
+def roi_align_bwd_cuda(grad: torch.Tensor, rois: torch.Tensor,
+                       feats_shape: Tuple[int, int, int, int],
+                       spatial_scale: float, out_size: int = 7,
+                       sampling_ratio: int = 2, aligned: bool = True,
+                       flatten: bool = False) -> torch.Tensor:
+    """Launch the backward kernel `roi_align_bwd`: the gradient (B, H, W, C)
+    with respect to feats of the forward's output gradient `grad`, either
+    (B, R, o, o, C) or flat (B, R, o·o·C) x-major, f32 or bf16. Sums in an
+    f32 buffer (zeroed here) and returns it in `grad`'s dtype."""
+    b, h, w, c = feats_shape
+    _check_kernel_args(grad, rois, b, out_size, sampling_ratio)
+    n = rois.shape[1]
+    shape = (b, n, out_size * out_size * c) if flatten else \
+        (b, n, out_size, out_size, c)
+    if tuple(grad.shape) != shape:
+        raise ValueError(f'grad shape {tuple(grad.shape)}, expected {shape}')
+    grad_feats = torch.zeros((b, h, w, c), dtype=torch.float32,
+                             device=grad.device)
+    if b * n == 0:
+        return grad_feats.to(grad.dtype)
+    vec = _VEC[grad.dtype]
+    if c % vec or grad.data_ptr() % 16:
+        vec = 1
+    lib = _kernel_lib()
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = lib.roi_align_bwd(
+            grad.data_ptr(), rois.data_ptr(), grad_feats.data_ptr(), b, h, w,
+            c, n, float(spatial_scale), out_size, sampling_ratio,
+            int(aligned), int(flatten), _DTYPE_CODES[grad.dtype], vec, stream)
+    if err != 0:
+        raise RuntimeError(f'roi_align_bwd launch failed: cudaError {err}')
+    roi_align_bwd_cuda.launches += 1
+    return grad_feats if grad.dtype == torch.float32 else \
+        grad_feats.to(grad.dtype)
+
+
+roi_align_bwd_cuda.launches = 0
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """RoIAlign on CUDA with a gradient: the forward launches `roi_align_fwd`
+    and the backward `roi_align_bwd`; rois get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, rois, spatial_scale, out_size, sampling_ratio,
+                aligned, flatten):
+        ctx.save_for_backward(rois)
+        ctx.feats_shape = tuple(feats.shape)
+        ctx.args = (spatial_scale, out_size, sampling_ratio, aligned, flatten)
+        return roi_align_cuda(feats, rois, spatial_scale, out_size,
+                              sampling_ratio, aligned, flatten)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        grad_feats = None
+        if ctx.needs_input_grad[0]:
+            grad_feats = roi_align_bwd_cuda(grad.contiguous(), rois,
+                                            ctx.feats_shape, *ctx.args)
+        return grad_feats, None, None, None, None, None, None
+
+
 def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor,
                       spatial_scale: float, out_size: int = 7,
                       sampling_ratio: int = 2, aligned: bool = True,
@@ -190,13 +261,20 @@ def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor,
     """Batched RoIAlign: (B,H,W,C) x (B,R,4) → (B,R,o,o,C), or (B,R,o·o·C)
     in x-major order with `flatten=True`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `batched_roi_align.launches`) or raise.
+    CPU tensors take the plain version (and its autograd). CUDA tensors
+    launch the forward kernel (counted in `batched_roi_align.launches`) or
+    raise; when grad is recorded and feats require it, through
+    :class:`RoIAlignFunction`, whose backward launches `roi_align_bwd`.
     """
+    rois = rois.detach()
     if feats.device.type == 'cpu':
         return batched_roi_align_plain(feats, rois, spatial_scale, out_size,
                                        sampling_ratio, aligned, flatten)
     if feats.device.type == 'cuda':
+        if torch.is_grad_enabled() and feats.requires_grad:
+            return RoIAlignFunction.apply(feats, rois, spatial_scale,
+                                          out_size, sampling_ratio, aligned,
+                                          flatten)
         return roi_align_cuda(feats, rois, spatial_scale, out_size,
                               sampling_ratio, aligned, flatten)
     raise ValueError(f'no RoIAlign for device {feats.device}')

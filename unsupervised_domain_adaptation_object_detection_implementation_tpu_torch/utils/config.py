@@ -60,78 +60,12 @@ def merge_dict(base: dict, override: dict) -> dict:
     return merged
 
 
-def _exec_pyfile(filename: str) -> Dict[str, Any]:
-    with open(filename, 'r') as f:
-        code = f.read()
-    module = types.ModuleType('_cfg_')
-    module.__file__ = filename
-    exec(compile(code, filename, 'exec'), module.__dict__)
-    return {k: v for k, v in module.__dict__.items()
-            if not k.startswith('__') and not isinstance(v, types.ModuleType)}
-
-
-def _load_with_bases(filename: str) -> Dict[str, Any]:
-    cfg = _exec_pyfile(filename)
-    bases: Union[str, List[str]] = cfg.pop('_base_', [])
-    if isinstance(bases, str):
-        bases = [bases]
-    merged: Dict[str, Any] = {}
-    for base in bases:
-        base_path = os.path.join(os.path.dirname(filename), base)
-        merged = merge_dict(merged, _load_with_bases(base_path))
-    return merge_dict(merged, cfg)
-
-
-class Config:
-    """Loaded configuration tree."""
-
-    def __init__(self, cfg_dict: Optional[dict] = None, filename: Optional[str] = None):
-        self._cfg = _to_configdict(cfg_dict or {})
-        self.filename = filename
-
-    @classmethod
-    def fromfile(cls, filename: str) -> 'Config':
-        return cls(_load_with_bases(filename), filename=filename)
-
-    def __getattr__(self, name):
-        try:
-            return self[name]
-        except KeyError as e:
-            raise AttributeError(name) from e
-
-    def __setattr__(self, name, value):
-        self[name] = value
-
-    def __deepcopy__(self, memo):
-        return ConfigDict(
-            {copy.deepcopy(k, memo): copy.deepcopy(v, memo) for k, v in self.items()})
-
-
-def _to_configdict(obj):
-    if isinstance(obj, dict):
-        return ConfigDict({k: _to_configdict(v) for k, v in obj.items()})
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_configdict(v) for v in obj)
-    return obj
-
-
-def merge_dict(base: dict, override: dict) -> dict:
-    """Recursively merge `override` into `base` (override wins).
-
-    A child dict containing `_delete_: True` replaces the base dict entirely
-    (mmcv semantics).
-    """
-    merged = dict(base)
-    for k, v in override.items():
-        if (isinstance(v, dict) and isinstance(merged.get(k), dict)
-                and not v.get('_delete_', False)):
-            merged[k] = merge_dict(merged[k], v)
-        else:
-            v = copy.deepcopy(v)
-            if isinstance(v, dict):
-                v.pop('_delete_', None)
-            merged[k] = v
-    return merged
+def set_by_dotted_key(cfg: dict, key: str, value: Any) -> None:
+    """cfg['a']['b'] = value for key 'a.b', making missing levels."""
+    *parents, last = key.split('.')
+    for k in parents:
+        cfg = cfg.setdefault(k, ConfigDict())
+    cfg[last] = value
 
 
 def _exec_pyfile(filename: str) -> Dict[str, Any]:

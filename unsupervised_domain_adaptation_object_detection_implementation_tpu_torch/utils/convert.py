@@ -7,14 +7,15 @@
 - Dense `kernel` (I, O) → `weight` (O, I). The first RoI FC keeps its rows
   as they are: port and JAX package both flatten RoI features x-major, so no
   permutation is needed;
-- `bias` → `bias`; FrozenBN `scale`/`bias` (params) and `mean`/`var`
-  (batch_stats) keep their names.
+- `bias` → `bias`; BatchNorm `scale`/`bias` (params) and `mean`/`var`
+  (batch_stats) keep their names, for the trunk's frozen BN and the DA
+  heads' live BN alike.
 
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
 `backbone.trunk.layer1.0.conv1.weight`. Leaves with no counterpart in the
-model are returned, not dropped silently: for `DAFasterRCNN` they are
-exactly the training-time DA heads.
+model are returned, not dropped silently; for `DAFasterRCNN` with the 'daf'
+taps there are none.
 """
 
 from __future__ import annotations
