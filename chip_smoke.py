@@ -14,8 +14,12 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 3. kernels — call each kernel's wrapper at its main path's shapes, hold it
    against its plain torch version (f32 with TF32 off, and bf16; both
    layouts), and time kernel and plain version with CUDA events: the
-   RoIAlign forward at the serving shape, its backward at the training
-   shape.
+   single-level RoIAlign forward at the DC5 serving shape, its backward at
+   the training shape, each also through the multi-level kernel at one
+   level (same result, timed beside it); the multi-level (FPN) RoIAlign
+   forward on the pyramid of the 608x1024 serving canvas (and once at
+   o=14), its backward on the pyramid of the 512x1024 training canvas, with
+   the RoI count per level.
 4. serving — `init_detector` on the flagship config
    (configs/da/faster_rcnn_r50_daf_c2f.py: DAFasterRCNN, R50-DC5, full
    width) with seeded random weights, then 4 requests of 2 Cityscapes-size
@@ -31,9 +35,25 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    once each (counts set to 0 before the step, read after). Afterwards the
    frozen stem and layer1 are bit-identical, every other parameter, the DA
    heads' BatchNorm statistics and the EMA have moved.
-6. reference — the tiny-fixture detector on the card against the same
-   weights on the CPU (plain versions), TF32 off: inference, and one train
-   step with dropout off and the same sampler priorities.
+6. FPN serving — `init_detector` on the Cityscapes Faster R-CNN R50-FPN
+   config (configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py, full
+   width: R50, 256-channel FPN P2–P6, 8 classes), 4 requests as in 4: each
+   request launches the FPN RoIAlign forward once and the single-level one
+   never; the kernel's RoI features on the last request's proposals match
+   the plain version's.
+7. FPN train — `init_trainer` on the same config, 1 warm-up and 5 timed
+   steps past the lr warmup on the 2 images of 512x1024: each step
+   launches the FPN RoIAlign forward and backward kernels once each;
+   afterwards the frozen stem and layer1 are bit-identical and every other
+   parameter (neck and RPN included) has moved (the config asks for no
+   EMA). Then the RoIs that a step of the trained model samples, from gt
+   boxes on every level, hold both FPN kernels to the plain version on all
+   four levels.
+8. reference — the tiny-fixture DC5 detector and a tiny FPN detector (the
+   FPN config with an R18 trunk, a 64-channel neck and 2 classes) on the
+   card against the same weights on the CPU (plain versions), TF32 off:
+   inference, and one train step with dropout off and the same sampler
+   priorities.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -54,6 +74,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     rpn_proposals
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers.norm import \
     BatchNorm
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.roi_heads.standard_roi_head import \
+    sample_rois
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ops import (
     cuda_build, roi_align)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train import \
@@ -64,6 +86,22 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ut
 PKG = 'unsupervised_domain_adaptation_object_detection_implementation_tpu_torch'
 FLAGSHIP = 'configs/da/faster_rcnn_r50_daf_c2f.py'
 TINY = 'configs/da/faster_rcnn_r18_tiny_fixture.py'
+FPN = 'configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py'
+# the tiny FPN detector of the reference phase; its 128x192 canvas comes
+# from a MultiScaleFlipAug test step, as in the tiny fixture. Few proposals:
+# the RPN logits of its 6138 anchors lie within ~0.3 of each other, ~1e-8
+# apart, so a longer ranking would order near-ties differently on the card
+# and on the CPU; the top 64 of weight seed FPN_TINY_SEED lie >= 8.9e-6
+# apart, far above the two sides' differences
+FPN_TINY = {'model.backbone_depth': 18, 'model.neck_channels': 64,
+            'model.num_classes': 2,
+            'model.rpn_proposal_cfg': dict(nms_pre=64, max_per_img=32),
+            'model.rpn_test_cfg': dict(nms_pre=64, max_per_img=32),
+            'model.roi_train_cfg': dict(num_samples=32),
+            'data.test.pipeline': [dict(type='MultiScaleFlipAug',
+                                        img_scale=(192, 128))]}
+FPN_TINY_SEED = 9
+FPN_STRIDES = (4, 8, 16, 32)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 # f32: kernel and plain version sum the same few (<= 16) weighted taps per
@@ -83,6 +121,10 @@ TOL_BF16 = 2e-2
 CITYSCAPES_STEPS = 2975
 FROZEN = ('backbone.trunk.conv1', 'backbone.trunk.bn1',
           'backbone.trunk.layer1.')
+# steps per epoch of the FPN config's loader at the 2 images a step that
+# this script trains on: Cityscapes' 2975 training images
+FPN_STEPS = 1488
+FPN_FROZEN = ('backbone.conv1', 'backbone.bn1', 'backbone.layer1.')
 
 
 def log(*parts):
@@ -153,9 +195,9 @@ def make_rois(gen, b, n, h, w, stride=16):
 
 
 def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16):
-    """What this run's RoIs make RoIAlign touch: the feature pixels any
-    nonzero tap reads, and the nonzero (sample, tap) products over all
-    bins, per channel."""
+    """What this run's RoIs (per image, (R, 4)) make RoIAlign touch: the
+    feature pixels any nonzero tap reads, and the nonzero (sample, tap)
+    products over all bins, per channel."""
     wx, wy = zip(*(roi_align._roi_weights(r, scale, out_size, sr, True, h, w)
                    for r in rois))
     touched = sum(int(((y.sum(1) != 0).float().T @ (x.sum(1) != 0).float()
@@ -170,7 +212,7 @@ def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16):
         frac = pc - pc.floor()
         return (valid * ((frac < 1).int() + (frac > 0).int())).sum(-1)
 
-    sc = rois.reshape(-1, 4) * scale
+    sc = torch.cat([r.reshape(-1, 4) for r in rois]) * scale
     nx = taps_per_bin(sc[:, 0] - 0.5, (sc[:, 2] - sc[:, 0]) / out_size, w)
     ny = taps_per_bin(sc[:, 1] - 0.5, (sc[:, 3] - sc[:, 1]) / out_size, h)
     return touched, int((nx.sum(1) * ny.sum(1)).sum())
@@ -192,11 +234,30 @@ def roi_align_work(rois, h, w, c, out_size=7, backward=False):
         2 * products * c + n_out
 
 
-def _entry(name, replaces, nbytes, ops, **numbers):
+def roi_align_fpn_work(rois, levels, sizes, c, out_size=7, backward=False):
+    """`roi_align_work` of the multi-level RoIAlign: each RoI's taps on its
+    own level; the forward reads the touched pixels of every level, the
+    backward writes every level's gradient once; the levels are read too."""
+    touched = products = 0
+    for lvl, ((h, w), s) in enumerate(zip(sizes, FPN_STRIDES)):
+        if not (levels == lvl).any():
+            continue
+        t, p = roi_align_taps([r[lv == lvl] for r, lv in zip(rois, levels)],
+                              h, w, out_size, scale=1 / s)
+        touched, products = touched + t, products + p
+    b, n = rois.shape[:2]
+    n_out = b * n * out_size * out_size * c
+    feat_bytes = sum(b * h * w * c for h, w in sizes) if backward else \
+        touched * c
+    return 4 * (n_out + feat_bytes) + (rois.numel() + levels.numel()) * 4, \
+        2 * products * c + n_out
+
+
+def _entry(name, replaces, nbytes, ops, source='roi_align.cu', **numbers):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_FLOPS * 1e3
     return dict(
-        name=name, route='cuda', source=f'{PKG}/csrc/roi_align.cu',
+        name=name, route='cuda', source=f'{PKG}/csrc/{source}',
         replaces='unsupervised_domain_adaptation_object_detection_'
                  f'implementation_tpu/ops/roi_align_pallas.py:{replaces}',
         launches=None, **numbers, bound_ms=max(bytes_ms, ops_ms),
@@ -257,6 +318,11 @@ def phase_kernels():
         f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd["bound_ms"]:.4f}'
         f' ms ({fwd["bound_by"]}: {nbytes / 1e6:.1f} MB, '
         f'{ops / 1e9:.2f} GFLOP)')
+    one_level_comparison(
+        'roi_align_fwd', ms,
+        lambda: roi_align.roi_align_cuda(feats, rois, 1 / 16, flatten=True),
+        lambda lv: roi_align.roi_align_fpn_cuda([feats], rois, lv, (16,),
+                                                flatten=True), b, n)
     del feats, rois
 
     # backward, at the training shape: 512 sampled RoIs per image
@@ -295,6 +361,161 @@ def phase_kernels():
         f' ms ({bwd["bound_by"]}: {nbytes / 1e6:.1f} MB, '
         f'{ops / 1e9:.2f} GFLOP; {(ops - grad.numel()) / 2e9:.2f} G f32 '
         'atomic adds)')
+    one_level_comparison(
+        'roi_align_bwd', ms,
+        lambda: roi_align.roi_align_bwd_cuda(grad, rois, shape, 1 / 16,
+                                             flatten=True),
+        lambda lv: roi_align.roi_align_fpn_bwd_cuda(
+            grad, rois, lv, [shape], (16,), flatten=True)[0], b, n)
+    return [fwd, bwd]
+
+
+def one_level_comparison(name, ms, single, multi, b, n):
+    """The multi-level kernel run at one level (every RoI at level 0,
+    stride 16) on the single-level kernel `name`'s work: it must give the
+    same result, and its time beside `name`'s says whether one kernel
+    design could serve both paths. Times `name` again after it, in the same
+    call."""
+    zeros = torch.zeros(b, n, dtype=torch.int32, device='cuda')
+    _check(f'{name} via the FPN kernel at one level', multi(zeros),
+           single(), TOL_F32, 'float32 flatten=True')
+    multi_ms = time_ms(lambda: multi(zeros), 20)
+    again_ms = time_ms(single, 20)
+    log(f'kernels: {name}\'s work through the FPN kernel at one level: '
+        f'{multi_ms:.4f} ms; {name} {ms:.4f} ms before it, {again_ms:.4f} ms '
+        'after it')
+
+
+def make_fpn_rois(gen, b, n, ih, iw):
+    """Seeded RoIs over an (ih, iw) canvas whose sizes reach every FPN level
+    (sqrt area 8..900 px, log-uniform), with edge cases: zero (padded)
+    boxes, boxes crossing and beyond the border, under one pixel, and boxes
+    at the exact level boundaries sqrt(area) = 112, 224 and 448."""
+    u = torch.rand(b, n, 4, generator=gen, device='cuda')
+    side = torch.exp(math.log(8) + u[..., 2] * math.log(900 / 8))
+    aspect = torch.exp((u[..., 3] - 0.5) * 1.4)
+    bw, bh = side * aspect, side / aspect
+    x1 = u[..., 0] * (iw + 0.2 * bw) - 0.2 * bw
+    y1 = u[..., 1] * (ih + 0.2 * bh) - 0.2 * bh
+    rois = torch.stack([x1, y1, x1 + bw, y1 + bh], -1)
+    special = torch.tensor([
+        [0, 0, 0, 0], [0, 0, 0, 0],
+        [10, 20, 122, 132], [100, 50, 324, 274], [30, 40, 478, 488],
+        [0, 0, 896, 224],
+        [-48, -32, 32, 48],
+        [iw - 16, ih - 16, iw + 64, ih + 48],
+        [iw + 16, ih + 16, iw + 80, ih + 96],
+        [5.3, 7.1, 5.9, 7.4]], device='cuda')
+    rois[:, :len(special)] = special
+    return rois.contiguous()
+
+
+def plain_fpn_backward(feats, rois, grad, out_size, flatten):
+    """d feats of every level of the plain multi-level version, by its
+    autograd."""
+    fs = [f.detach().requires_grad_() for f in feats]
+    out = roi_align.batched_roi_align_fpn_plain(
+        fs, rois, out_size=out_size, flatten=flatten)
+    return torch.autograd.grad(out, fs, grad)
+
+
+def _level_counts(levels):
+    counts = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    if not all(counts):
+        raise RuntimeError(f'RoIs per level {counts}: a level is missing')
+    return counts
+
+
+def phase_fpn_kernels():
+    """The multi-level RoIAlign kernels: forward on the pyramid of the
+    608x1024 serving canvas (2 x 1000 RoIs), backward on that of the
+    512x1024 training canvas (2 x 512 sampled RoIs), C = 256."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    plain = roi_align.batched_roi_align_fpn_plain
+
+    b, c, n = 2, 256, 1000
+    sizes = [(608 // s, 1024 // s) for s in FPN_STRIDES]
+    feats = [torch.randn(b, h, w, c, generator=gen, device='cuda')
+             for h, w in sizes]
+    rois = make_fpn_rois(gen, b, n, 608, 1024)
+    levels = roi_align.roi_levels(rois, 4)
+    log(f'kernels: roi_align_fpn_fwd RoIs per level P2..P5 '
+        f'{_level_counts(levels)}')
+    worst = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        fs = [f.to(dtype) for f in feats]
+        for flatten in (True, False):
+            err = _check('roi_align_fpn_fwd', roi_align.roi_align_fpn_cuda(
+                fs, rois, levels, flatten=flatten),
+                plain(fs, rois, flatten=flatten), tol,
+                f'{str(dtype)[6:]} flatten={flatten}')
+            if dtype == torch.float32:
+                worst = max(worst, err)
+        del fs
+    worst = max(worst, _check(
+        'roi_align_fpn_fwd', roi_align.roi_align_fpn_cuda(
+            feats, rois, levels, out_size=14, flatten=True),
+        plain(feats, rois, out_size=14, flatten=True),
+        TOL_F32, 'float32 o=14 flatten=True'))
+    ms = time_ms(lambda: roi_align.roi_align_fpn_cuda(
+        feats, rois, levels, flatten=True), 20)
+    plain_ms = time_ms(lambda: plain(feats, rois, flatten=True), 3,
+                       warmup=1)
+    nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c)
+    fwd = _entry('roi_align_fpn_fwd', 1181, nbytes, ops,
+                 source='roi_align_fpn.cu', max_abs_err=worst, ms=ms,
+                 plain_ms=plain_ms)
+    log(f'kernels: roi_align_fpn_fwd f32 pyramid of 608x1024 C=256 x 2x1000 '
+        f'rois flat: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{fwd["bound_ms"]:.4f} ms ({fwd["bound_by"]}: {nbytes / 1e6:.1f} '
+        f'MB, {ops / 1e9:.2f} GFLOP)')
+    del feats, rois, levels
+
+    b, n = 2, 512
+    sizes = [(512 // s, 1024 // s) for s in FPN_STRIDES]
+    feats = [torch.randn(b, h, w, c, generator=gen, device='cuda')
+             for h, w in sizes]
+    shapes = [tuple(f.shape) for f in feats]
+    rois = make_fpn_rois(gen, b, n, 512, 1024)
+    levels = roi_align.roi_levels(rois, 4)
+    log(f'kernels: roi_align_fpn_bwd RoIs per level P2..P5 '
+        f'{_level_counts(levels)}')
+    grad = torch.randn(b, n, 7 * 7 * c, generator=gen, device='cuda')
+    worst = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        fs, g = [f.to(dtype) for f in feats], grad.to(dtype)
+        for flatten in (True, False):
+            gl = g if flatten else \
+                g.reshape(b, n, 7, 7, c).transpose(2, 3).contiguous()
+            got = roi_align.roi_align_fpn_bwd_cuda(gl, rois, levels, shapes,
+                                                   flatten=flatten)
+            ref = plain_fpn_backward(fs, rois, gl, 7, flatten)
+            for lvl, (gg, rr) in enumerate(zip(got, ref)):
+                err = _check('roi_align_fpn_bwd', gg, rr, tol,
+                             f'{str(dtype)[6:]} flatten={flatten} P{lvl + 2}')
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            del gl, got, ref
+        del fs, g
+    ms = time_ms(lambda: roi_align.roi_align_fpn_bwd_cuda(
+        grad, rois, levels, shapes, flatten=True), 20)
+    fs = [f.detach().requires_grad_() for f in feats]
+    out = plain(fs, rois, flatten=True)
+    plain_ms = time_ms(lambda: torch.autograd.grad(out, fs, grad,
+                                                   retain_graph=True),
+                       3, warmup=1)
+    del out, fs
+    nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c, backward=True)
+    bwd = _entry('roi_align_fpn_bwd', 1121, nbytes, ops,
+                 source='roi_align_fpn.cu', max_abs_err=worst, ms=ms,
+                 plain_ms=plain_ms)
+    log(f'kernels: roi_align_fpn_bwd f32 pyramid of 512x1024 C=256 x 2x512 '
+        f'rois flat g: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{bwd["bound_ms"]:.4f} ms ({bwd["bound_by"]}: {nbytes / 1e6:.1f} '
+        f'MB, {ops / 1e9:.2f} GFLOP; {(ops - grad.numel()) / 2e9:.2f} G f32 '
+        'atomic adds)')
     return [fwd, bwd]
 
 
@@ -321,15 +542,20 @@ def _check_result(res, shape_hw, num_classes, max_det):
     return total
 
 
-def phase_main_path(card, kernels):
+def _serve(card, config, label, expect, kernels):
+    """`init_detector` on `config` (full width, seeded random weights), one
+    warm-up request and 4 timed requests of 2 seeded Cityscapes-size
+    images. `expect` maps a kernel's name to (its launch counter, launches
+    per request); the counters are set to 0 just before the timed requests
+    and checked after each. Returns the bundle and the requests."""
     # serving runs with PyTorch's defaults: cuDNN convolutions in TF32,
     # matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    bundle = init_detector(FLAGSHIP, device='cuda', seed=0)
+    bundle = init_detector(config, device='cuda', seed=0)
     torch.cuda.synchronize()
-    log(f'main: init_detector {FLAGSHIP} on cuda in '
+    log(f'{label}: init_detector {config} on cuda in '
         f'{time.perf_counter() - t0:.2f} s; canvas {bundle.canvas}, '
         f'{sum(p.numel() for p in bundle.model.parameters()) / 1e6:.1f} M '
         'params')
@@ -340,10 +566,10 @@ def phase_main_path(card, kernels):
                  for _ in range(2)] for _ in range(5)]
     t0 = time.perf_counter()
     inference_detector(bundle, requests[0])          # warm-up, set-up cost
-    log(f'main: warm-up request {1e3 * (time.perf_counter() - t0):.1f} ms')
+    log(f'{label}: warm-up request '
+        f'{1e3 * (time.perf_counter() - t0):.1f} ms')
 
-    counters = {'roi_align_fwd': roi_align.batched_roi_align}
-    for fn in counters.values():
+    for fn, _ in expect.values():
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -354,20 +580,28 @@ def phase_main_path(card, kernels):
         latencies.append(1e3 * (time.perf_counter() - t0))
         for r in res:
             n_dets += _check_result(r, (1024, 2048), 8, 100)
-        for name, fn in counters.items():     # each request ran each kernel
-            if fn.launches != i:
+        for name, (fn, per_request) in expect.items():
+            if fn.launches != i * per_request:
                 raise RuntimeError(f'{name}: {fn.launches} launches after '
-                                   f'{i} requests')
-    launches = {k: fn.launches for k, fn in counters.items()}
+                                   f'{i} requests, expected '
+                                   f'{i * per_request}')
+    launches = {k: fn.launches for k, (fn, _) in expect.items()}
     peak = torch.cuda.max_memory_allocated()
     for entry in kernels:
-        if entry['name'] in launches:
+        if launches.get(entry['name']):
             entry['launches'] = launches[entry['name']]
     total_s = sum(latencies) / 1e3
-    log(f'main: 4 requests x 2 images 1024x2048 -> {n_dets} dets; latency '
-        f'ms {[round(x, 2) for x in latencies]} mean '
+    log(f'{label}: 4 requests x 2 images 1024x2048 -> {n_dets} dets; '
+        f'latency ms {[round(x, 2) for x in latencies]} mean '
         f'{np.mean(latencies):.2f}; {8 / total_s:.2f} img/s; peak memory '
         f'{peak / 2**30:.2f} GiB; launches {launches} [{card}]')
+    return bundle, requests
+
+
+def phase_main_path(card, kernels):
+    bundle, requests = _serve(
+        card, FLAGSHIP, 'main',
+        {'roi_align_fwd': (roi_align.batched_roi_align, 1)}, kernels)
 
     # the kernel's RoI features on the last request's real proposals
     torch.backends.cudnn.allow_tf32 = False
@@ -375,11 +609,9 @@ def phase_main_path(card, kernels):
         batch, _ = prepare_batch(bundle, requests[-1])
         model = bundle.model
         feat = model.extract_feat(batch['image'])
-        rpn_cls, rpn_reg = model.rpn_head(feat)
         proposals, _, valid = rpn_proposals(
-            rpn_cls, rpn_reg, model._anchors_for(feat), batch['img_shape'],
-            model.rpn_test_cfg)
-        feats = feat.permute(0, 2, 3, 1).contiguous()
+            *model.rpn_outputs(feat), batch['img_shape'], model.rpn_test_cfg)
+        feats = model.roi_maps(feat)
         got = roi_align.roi_align_cuda(feats, proposals, 1 / 16,
                                        flatten=True)
         ref = roi_align.batched_roi_align_plain(feats, proposals, 1 / 16,
@@ -390,21 +622,56 @@ def phase_main_path(card, kernels):
         f'proposals): max_abs_err {err:.3e} scale {scale:.3f}')
     if not err <= TOL_F32 * scale:
         raise RuntimeError(f'RoI features disagree: {err} > {TOL_F32 * scale}')
-    return dict(latency_ms=latencies, img_per_s=8 / total_s,
-                peak_bytes=peak)
 
 
-def phase_train(card, kernels):
+def phase_fpn_serving(card, kernels):
+    bundle, requests = _serve(
+        card, FPN, 'fpn serving',
+        {'roi_align_fpn_fwd': (roi_align.roi_align_fpn_cuda, 1),
+         'roi_align_fwd': (roi_align.batched_roi_align, 0)}, kernels)
+
+    # the kernel's RoI features on the last request's real proposals
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        batch, _ = prepare_batch(bundle, requests[-1])
+        model = bundle.model
+        feats = model.extract_feat(batch['image'])
+        proposals, _, valid = rpn_proposals(
+            *model.rpn_outputs(feats), batch['img_shape'], model.rpn_test_cfg)
+        pyramid = model.roi_maps(feats)
+        levels = roi_align.roi_levels(proposals, 4)
+        got = roi_align.roi_align_fpn_cuda(pyramid, proposals, levels,
+                                           flatten=True)
+        ref = roi_align.batched_roi_align_fpn_plain(pyramid, proposals,
+                                                    flatten=True)
+    err = float((got - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    counts = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    log(f'fpn serving: RoI features on the last request ({int(valid.sum())} '
+        f'valid proposals, per level P2..P5 {counts}): max_abs_err '
+        f'{err:.3e} scale {scale:.3f}')
+    if not err <= TOL_F32 * scale:
+        raise RuntimeError(f'FPN RoI features disagree: {err} > '
+                           f'{TOL_F32 * scale}')
+
+
+def _train(card, config, steps_per_epoch, label, counters):
+    """`init_trainer` on `config` (full width, f32, seeded random weights)
+    and 1 warm-up + 5 timed steps past the lr warmup on the seeded batch of
+    2 images of 512x1024. Each step must launch every kernel of `counters`
+    once (counts set to 0 before the step, read after) and give finite
+    losses. Returns (trainer, state, start parameters, step ms, launches,
+    peak bytes)."""
     # training runs with PyTorch's defaults, as serving does: cuDNN
     # convolutions in TF32, matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    trainer = init_trainer(FLAGSHIP, device='cuda', seed=0,
-                           steps_per_epoch=CITYSCAPES_STEPS)
-    model, params = trainer.model, trainer.state.params
+    trainer = init_trainer(config, device='cuda', seed=0,
+                           steps_per_epoch=steps_per_epoch)
+    params = trainer.state.params
     torch.cuda.synchronize()
-    log(f'train: init_trainer {FLAGSHIP} on cuda in '
+    log(f'{label}: init_trainer {config} on cuda in '
         f'{time.perf_counter() - t0:.2f} s; '
         f'{sum(p.numel() for p in params.values()) / 1e6:.1f} M params, '
         f'{sum(p.numel() for p in params.values() if p.requires_grad) / 1e6:.1f}'
@@ -412,19 +679,11 @@ def phase_train(card, kernels):
     batch = demo_batch()                # 2 images of 512x1024, on the card
     gen = torch.Generator(device='cuda').manual_seed(0)
     start = {n: p.detach().clone() for n, p in params.items()}
-    da_stats = {f'{m_name}.{b}': getattr(m, b).clone()
-                for m_name, m in model.named_modules()
-                if isinstance(m, BatchNorm) for b in ('mean', 'var')}
-    if not da_stats:
-        raise RuntimeError('no DA-head BatchNorm in the model')
-
-    counters = {'roi_align_fwd': roi_align.batched_roi_align,
-                'roi_align_bwd': roi_align.roi_align_bwd_cuda}
     totals = dict.fromkeys(counters, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # past the 500-step warmup, at the schedule's full lr: an update at the
-    # first steps' lr (1e-7) is below f32 resolution for many parameters
+    # first steps' lr is below f32 resolution for many parameters
     state, times = trainer.state, []
     state = state._replace(opt_state=state.opt_state._replace(count=500))
     for i in range(6):                  # 1 warm-up + 5 timed steps
@@ -436,61 +695,169 @@ def phase_train(card, kernels):
         ms = 1e3 * (time.perf_counter() - t0)
         for name, fn in counters.items():
             if fn.launches != 1:
-                raise RuntimeError(f'train step {i}: {name} launched '
+                raise RuntimeError(f'{label} step {i}: {name} launched '
                                    f'{fn.launches} times, expected 1')
             totals[name] += fn.launches
         values = {k: float(v) for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in values.values()) \
-                or values['skipped_nonfinite']:
-            raise RuntimeError(f'train step {i}: {values}')
+                or values.get('skipped_nonfinite'):
+            raise RuntimeError(f'{label} step {i}: {values}')
         if i:
             times.append(ms)
-        log(f'train: step {i} {ms:.1f} ms ' + ' '.join(
+        log(f'{label}: step {i} {ms:.1f} ms ' + ' '.join(
             f'{k}={v:.4f}' for k, v in values.items()))
-    peak = torch.cuda.max_memory_allocated()
+    return trainer, state, start, times, totals, \
+        torch.cuda.max_memory_allocated()
 
-    # the EMA follows the parameters (its decay ramps up from ~0, so after 6
-    # steps it sits within a few ulps of them on many leaves) but is not them
-    moved = ema_apart = 0
+
+def _moved(params, start, frozen, label):
+    """The number of parameters that moved; raises unless exactly those
+    outside the `frozen` prefixes did."""
+    moved = 0
     for n, p in params.items():
         same = torch.equal(p.detach(), start[n])
-        if n.startswith(FROZEN) != same:
-            raise RuntimeError(f'{n}: {"unchanged" if same else "changed"} '
-                               'after 6 steps')
+        if n.startswith(frozen) != same:
+            state = 'unchanged' if same else 'changed'
+            raise RuntimeError(f'{label}: {n} {state} after 6 steps')
         moved += not same
-        if not same and torch.equal(state.ema_params[n], start[n]):
+    return moved
+
+
+def _train_summary(label, what, times, peak, totals, card):
+    med = float(np.median(times))
+    return (f'{label}: 5 steps x 2 images 512x1024 ({what}): step ms '
+            f'{[round(t, 2) for t in times]} median {med:.2f} min '
+            f'{min(times):.2f} max {max(times):.2f}; {2e3 / med:.2f} img/s; '
+            f'peak memory {peak / 2**30:.2f} GiB; launches {totals} over 6 '
+            f'steps [{card}]')
+
+
+def phase_train(card, kernels):
+    trainer, state, start, times, totals, peak = _train(
+        card, FLAGSHIP, CITYSCAPES_STEPS, 'train',
+        {'roi_align_fwd': roi_align.batched_roi_align,
+         'roi_align_bwd': roi_align.roi_align_bwd_cuda})
+    params = trainer.state.params
+    da_stats = {f'{m_name}.{b}': getattr(m, b)
+                for m_name, m in trainer.model.named_modules()
+                if isinstance(m, BatchNorm) for b in ('mean', 'var')}
+    if not da_stats:
+        raise RuntimeError('no DA-head BatchNorm in the model')
+    # the DA heads' live BatchNorm starts at mean 0, var 1 (seeded init)
+    for n, v in da_stats.items():
+        if torch.equal(v, torch.zeros_like(v) if n.endswith('mean')
+                       else torch.ones_like(v)):
+            raise RuntimeError(f'{n}: DA-head BatchNorm statistic unchanged')
+    moved = _moved(params, start, FROZEN, 'train')
+    # the EMA follows the parameters (its decay ramps up from ~0, so after 6
+    # steps it sits within a few ulps of them on many leaves) but is not them
+    ema_apart = 0
+    for n, p in params.items():
+        if torch.equal(p.detach(), start[n]):
+            continue
+        if torch.equal(state.ema_params[n], start[n]):
             raise RuntimeError(f'{n}: the EMA did not follow the parameter')
-        ema_apart += not same and \
-            not torch.equal(state.ema_params[n], p.detach())
+        ema_apart += not torch.equal(state.ema_params[n], p.detach())
     if not ema_apart:
         raise RuntimeError('the EMA equals the parameters on every leaf')
-    for n, v in da_stats.items():
-        if torch.equal(model.get_buffer(n), v):
-            raise RuntimeError(f'{n}: DA-head BatchNorm statistic unchanged')
     for entry in kernels:
         if entry['name'] == 'roi_align_bwd':
             entry['launches'] = totals['roi_align_bwd']
-    med = float(np.median(times))
-    log(f'train: 5 steps x 2 images 512x1024 (R50-DC5 daf f32): step ms '
-        f'{[round(t, 2) for t in times]} median {med:.2f} min '
-        f'{min(times):.2f} max {max(times):.2f}; {2e3 / med:.2f} img/s; '
-        f'peak memory {peak / 2**30:.2f} GiB; launches {totals} over 6 '
-        f'steps; {moved} parameters moved, stem and layer1 unchanged, EMA '
+    log(_train_summary('train', 'R50-DC5 daf f32', times, peak, totals, card)
+        + f'; {moved} parameters moved, stem and layer1 unchanged, EMA '
         f'apart from {ema_apart} of them, {len(da_stats)} DA BatchNorm '
-        f'statistics moved [{card}]')
-    return dict(step_ms=times, img_per_s=2e3 / med, peak_bytes=peak)
+        'statistics moved')
 
 
-def phase_reference():
-    """Tiny fixture detector: card (kernels) vs CPU (plain versions)."""
+def phase_fpn_train(card, kernels):
+    trainer, state, start, times, totals, peak = _train(
+        card, FPN, FPN_STEPS, 'fpn train',
+        {'roi_align_fpn_fwd': roi_align.roi_align_fpn_cuda,
+         'roi_align_fpn_bwd': roi_align.roi_align_fpn_bwd_cuda})
+    moved = _moved(trainer.state.params, start, FPN_FROZEN, 'fpn train')
+    if not any(n.startswith('neck.') for n in start) or \
+            state.ema_params is not None:
+        raise RuntimeError('FPN trainer: no neck, or an EMA the config does '
+                           'not ask for')
+    for entry in kernels:
+        if entry['name'] == 'roi_align_fpn_bwd':
+            entry['launches'] = totals['roi_align_fpn_bwd']
+    log(_train_summary('fpn train', 'R50-FPN f32', times, peak, totals, card)
+        + f'; {moved} parameters moved (neck and RPN included), stem and '
+        'layer1 unchanged; the config has no EMA')
+    fpn_kernels_on_sampled_rois(trainer.model)
+
+
+def fpn_level_batch():
+    """`demo_batch`'s 2 images of 512x1024 with 16 valid gt boxes an image,
+    4 on each FPN level: sqrt(area) 24..90 (P2), 120..210 (P3), 240..420
+    (P4), 470..690 px (P5), at seeded places inside the image."""
+    batch = demo_batch()
+    b, g = batch['gt_bboxes'].shape[:2]
+    side = np.array([24, 40, 64, 90, 120, 150, 180, 210, 240, 300, 360, 420,
+                     470, 520, 600, 690], np.float32)[:g]
+    h = np.minimum(side, 480)
+    w = side * side / h
+    rs = np.random.RandomState(2)
+    x1 = rs.uniform(0, 1, (b, g)) * (1024 - w)
+    y1 = rs.uniform(0, 1, (b, g)) * (512 - h)
+    boxes = np.stack([x1, y1, x1 + w, y1 + h], -1).astype(np.float32)
+    batch['gt_bboxes'] = torch.from_numpy(boxes).cuda()
+    batch['gt_valid'] = torch.ones_like(batch['gt_valid'])
+    return batch
+
+
+def fpn_kernels_on_sampled_rois(model):
+    """Both FPN kernels against the plain version on the RoIs that a train
+    step of the trained full-width model samples (proposals and gt boxes,
+    as `FasterRCNNFPN.loss` samples them) from `fpn_level_batch`, whose gt
+    boxes reach every level: forward, and backward on a seeded cotangent.
+    Fails if a level gets no RoI."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    batch = fpn_level_batch()
+    with torch.no_grad():
+        feats = model.extract_feat(batch['image'])
+        proposals, _, valid = rpn_proposals(
+            *model.rpn_outputs(feats), batch['img_shape'],
+            model.rpn_proposal_cfg)
+        sampled = sample_rois(
+            proposals, valid, batch['gt_bboxes'], batch['gt_labels'],
+            batch['gt_valid'], model.num_classes, model.roi_train_cfg,
+            generator=gen)
+        pyramid = model.roi_maps(feats)
+    rois = sampled.rois.contiguous()
+    levels = roi_align.roi_levels(rois, 4)
+    log(f'fpn train: {tuple(rois.shape[:2])} sampled RoIs, per level P2..P5 '
+        f'{_level_counts(levels)}')
+    got = roi_align.roi_align_fpn_cuda(pyramid, rois, levels, flatten=True)
+    _check('roi_align_fpn_fwd', got, roi_align.batched_roi_align_fpn_plain(
+        pyramid, rois, flatten=True), TOL_F32, 'on sampled RoIs')
+    grad = torch.randn(got.shape, generator=gen, device='cuda')
+    got = roi_align.roi_align_fpn_bwd_cuda(
+        grad, rois, levels, [tuple(p.shape) for p in pyramid], flatten=True)
+    ref = plain_fpn_backward(pyramid, rois, grad, 7, True)
+    for lvl, (gg, rr) in enumerate(zip(got, ref)):
+        _check('roi_align_fpn_bwd', gg, rr, TOL_F32,
+               f'on sampled RoIs P{lvl + 2}')
+
+
+def _fpn_tiny_cfg():
+    cfg = Config.fromfile(FPN)
+    cfg.merge_from_dict(FPN_TINY)
+    return cfg
+
+
+def phase_reference(config=TINY, label='tiny fixture', hw=(64, 96), seed=3):
+    """A tiny detector: card (kernels) vs CPU (plain versions), from the
+    same weights, TF32 off: detections within 1e-3."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rs = np.random.RandomState(1)
-    imgs = [rs.randint(0, 256, (64, 96, 3), dtype=np.uint8)
-            for _ in range(2)]
+    imgs = [rs.randint(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(2)]
     outs = []
     for device in ('cuda', 'cpu'):
-        bundle = init_detector(TINY, device='cpu', seed=3)
+        bundle = init_detector(config, device='cpu', seed=seed)
         if device == 'cuda':
             bundle = bundle._replace(model=bundle.model.to('cuda'),
                                      device=torch.device('cuda'))
@@ -502,32 +869,34 @@ def phase_reference():
                 raise RuntimeError(f'card vs CPU: {g.shape} vs {r.shape}')
             if len(g):
                 worst = max(worst, float(np.abs(g - r).max()))
-    log(f'reference: tiny fixture card vs CPU, '
-        f'{sum(len(d) for r in outs[1] for d in r)} dets, max_abs_err '
+    n_dets = sum(len(d) for r in outs[1] for d in r)
+    log(f'reference: {label} card vs CPU, {n_dets} dets, max_abs_err '
         f'{worst:.3e}')
-    if not worst <= 1e-3:
-        raise RuntimeError(f'card and CPU disagree: {worst}')
+    if not n_dets or not worst <= 1e-3:
+        raise RuntimeError(f'card and CPU disagree: {worst} ({n_dets} dets)')
 
 
-def phase_reference_train():
-    """One tiny-fixture train step on the card (kernels) against the same
-    step on the CPU (plain versions), from the same weights, TF32 off,
-    dropout off and the same sampler priorities. Per-term losses within
-    1e-4 relative and updated parameters within 1e-4 of scale: the two
-    sides sum in other orders, the RoIAlign backward with atomics."""
+def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
+                          anchors=4 * 6 * 6, proposals=64, seed=3):
+    """One tiny train step on the card (kernels) against the same step on
+    the CPU (plain versions), from the same weights, TF32 off, dropout off
+    and the same sampler priorities (`anchors` and 6 gt + `proposals`
+    candidates per image). Per-term losses within 1e-4 relative and updated
+    parameters within 1e-4 of scale: the two sides sum in other orders, the
+    RoIAlign backward with atomics."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Config.fromfile(TINY)
+    cfg = Config.fromfile(config) if isinstance(config, str) else config
     cfg.merge_from_dict({'optimizer.lr': 0.002,
                          'lr_config.warmup_ratio': 0.5})
     # one step at step count 0: the epoch length only places the decay
-    trainers = [init_trainer(cfg, device=d, seed=3, steps_per_epoch=1)
+    trainers = [init_trainer(cfg, device=d, seed=seed, steps_per_epoch=1)
                 for d in ('cpu', 'cuda')]
     trainers[1].model.load_state_dict(trainers[0].model.state_dict())
-    batch = demo_batch(2, 64, 96, g=6, num_classes=2, seed=4, device='cpu')
+    batch = demo_batch(2, *hw, g=6, num_classes=2, seed=4, device='cpu')
     gen = torch.Generator().manual_seed(5)
-    pri = dict(rpn=torch.rand(2, 4 * 6 * 6, generator=gen),
-               rcnn=torch.rand(2, 6 + 64, generator=gen))
+    pri = dict(rpn=torch.rand(2, anchors, generator=gen),
+               rcnn=torch.rand(2, 6 + proposals, generator=gen))
     results = []
     for trainer in trainers:
         for m in trainer.model.modules():
@@ -544,7 +913,7 @@ def phase_reference_train():
     rel = max(abs(got_l[k] - v) / max(abs(v), 1e-6) for k, v in ref_l.items())
     err = max(float((got_p[n] - v).abs().max()) /
               max(1.0, float(v.abs().max())) for n, v in ref_p.items())
-    log(f'reference: tiny fixture train step card vs CPU: losses '
+    log(f'reference: {label} train step card vs CPU: losses '
         f'{ {k: round(v, 5) for k, v in got_l.items()} }, worst relative '
         f'loss difference {rel:.3e}, worst parameter difference {err:.3e} '
         'of scale')
@@ -553,14 +922,32 @@ def phase_reference_train():
                            f'params {err}')
 
 
+def phase_fpn_reference():
+    """The tiny FPN detector (128x192 canvas, 32 proposals): card vs CPU,
+    inference and one train step, launching both FPN kernels."""
+    fwd, bwd = (roi_align.roi_align_fpn_cuda.launches,
+                roi_align.roi_align_fpn_bwd_cuda.launches)
+    label = 'tiny FPN (R18, 64-channel neck)'
+    phase_reference(_fpn_tiny_cfg(), label, (100, 150), FPN_TINY_SEED)
+    anchors = 3 * sum(-(-128 // s) * -(-192 // s) for s in (4, 8, 16, 32, 64))
+    phase_reference_train(_fpn_tiny_cfg(), label, (128, 192), anchors, 32,
+                          FPN_TINY_SEED)
+    if roi_align.roi_align_fpn_cuda.launches - fwd != 2 or \
+            roi_align.roi_align_fpn_bwd_cuda.launches - bwd != 1:
+        raise RuntimeError('tiny FPN on the card did not run its kernels')
+
+
 def main():
     card = phase_device()
     phase_build()
-    kernels = phase_kernels()
+    kernels = phase_kernels() + phase_fpn_kernels()
     phase_main_path(card, kernels)
     phase_train(card, kernels)
+    phase_fpn_serving(card, kernels)
+    phase_fpn_train(card, kernels)
     phase_reference()
     phase_reference_train()
+    phase_fpn_reference()
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -10,6 +10,7 @@ does any config that asks for a part not ported yet.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Union
 
 import torch
@@ -17,13 +18,15 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.registry import DETECTORS
 from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
-from .detectors import da_faster_rcnn, faster_rcnn  # noqa: F401 (register)
+from .detectors import (da_faster_rcnn, faster_rcnn,  # noqa: F401 (register)
+                        faster_rcnn_fpn)
 from .detectors.faster_rcnn import AnchorConfig
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
 
 # reference detector type name → (registry name, variant kwargs)
 _REFERENCE_DETECTOR_MAP = {
     'FasterRCNN': ('FasterRCNN', {}),
+    'FasterRCNNFPN': ('FasterRCNNFPN', {}),
     'DAFasterRCNN': ('DAFasterRCNN', dict(variant='daf',
                                           instance_mode='grouped')),
     'DAFasterRCNN_Org': ('DAFasterRCNN', dict(variant='daf_org',
@@ -131,6 +134,29 @@ def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return kwargs
 
 
+def _flat_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Flat module kwargs read as the JAX builder reads them: a dict given
+    for a NamedTuple field merges over the field's default, a list for a
+    plain tuple field becomes a tuple. `dtype` names the compute type; only
+    float32 is ported, any other raises."""
+    kwargs = dict(cfg)
+    dtype = kwargs.pop('dtype', 'float32')
+    if str(dtype).replace('torch.', '') != 'float32':
+        raise NotImplementedError(f'dtype {dtype!r}: only the float32 '
+                                  'compute path is ported')
+    params = inspect.signature(cls.__init__).parameters
+    for name, value in kwargs.items():
+        default = params[name].default if name in params else None
+        if isinstance(value, dict) and hasattr(default, '_fields'):
+            kwargs[name] = default._replace(**{
+                k: tuple(v) if isinstance(v, list) else v
+                for k, v in value.items()})
+        elif isinstance(value, list) and isinstance(default, tuple) \
+                and not hasattr(default, '_fields'):
+            kwargs[name] = tuple(value)
+    return kwargs
+
+
 def build_detector(cfg: Dict[str, Any],
                    device: Union[str, torch.device] = 'cuda'):
     """Build a detector module from a config dict (nested or flat) on
@@ -146,7 +172,7 @@ def build_detector(cfg: Dict[str, Any],
     if any(k in cfg for k in ('backbone', 'rpn_head', 'roi_head')):
         kwargs = _nested_to_kwargs(cfg)
     else:
-        kwargs = cfg
+        kwargs = _flat_kwargs(DETECTORS.get(reg_name), cfg)
     kwargs.update(extra)
     with device:
         return DETECTORS.get(reg_name)(**kwargs)

@@ -44,14 +44,19 @@ class AnchorConfig(NamedTuple):
         return len(self.scales) * len(self.ratios)
 
     def grid_anchors(self, feat_h: int, feat_w: int) -> np.ndarray:
-        return _grid_anchors(self, feat_h, feat_w)
+        return cached_grid_anchors((self.stride,), self.ratios, self.scales,
+                                   ((feat_h, feat_w),))
 
 
 @functools.lru_cache(maxsize=16)
-def _grid_anchors(cfg: AnchorConfig, feat_h: int, feat_w: int) -> np.ndarray:
-    gen = AnchorGenerator(strides=[cfg.stride], ratios=list(cfg.ratios),
-                          scales=list(cfg.scales))
-    anchors = gen.grid_priors([(feat_h, feat_w)])[0]
+def cached_grid_anchors(strides: Tuple[int, ...], ratios: Tuple[float, ...],
+                        scales: Tuple[float, ...],
+                        sizes: Tuple[Tuple[int, int], ...]) -> np.ndarray:
+    """The anchors of each level's (h, w) grid, (h, w, anchor)-major, the
+    levels concatenated in order; read-only, cached per geometry."""
+    gen = AnchorGenerator(strides=list(strides), ratios=list(ratios),
+                          scales=list(scales))
+    anchors = np.concatenate(gen.grid_priors(list(sizes)), axis=0)
     anchors.setflags(write=False)
     return anchors
 
@@ -100,10 +105,28 @@ class FasterRCNN(nn.Module):
         (feat,) = self.backbone(image.permute(0, 3, 1, 2))
         return feat
 
-    def _anchors_for(self, feat: torch.Tensor) -> torch.Tensor:
+    # The serving surface that FasterRCNNFPN shares: RPN outputs and
+    # anchors, the RoI extractor's input and the RoI extractor.
+    def rpn_outputs(self, feat: torch.Tensor):
+        """RPN → cls (B, H, W, A), reg (B, H, W, A*4) and the anchors
+        (H*W*A, 4), as `rpn_loss` and `rpn_proposals` take them."""
         h, w = feat.shape[-2], feat.shape[-1]
-        return torch.tensor(self.anchor_cfg.grid_anchors(h, w),
-                            device=feat.device)
+        anchors = torch.tensor(self.anchor_cfg.grid_anchors(h, w),
+                               device=feat.device)
+        return (*self.rpn_head(feat), anchors)
+
+    @staticmethod
+    def roi_maps(feat: torch.Tensor) -> torch.Tensor:
+        """The RoI extractor's input (B, H, W, C); a no-op view of the
+        channels_last map on the card."""
+        return feat.permute(0, 2, 3, 1).contiguous()
+
+    def roi_extract(self, feats_nhwc: torch.Tensor, rois: torch.Tensor
+                    ) -> torch.Tensor:
+        """RoIAlign at the feature stride, 7x7, flat x-major for the
+        Shared2FC head."""
+        return extract_roi_feats(feats_nhwc, rois, self.featmap_stride,
+                                 flatten=True)
 
     def loss(self, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -121,8 +144,7 @@ class FasterRCNN(nn.Module):
         outputs. Each stage is a `step/...` profiler range."""
         pri = sampler_priorities or {}
         with record_function('step/rpn_head_and_loss'):
-            anchors = self._anchors_for(feat)
-            rpn_cls, rpn_reg = self.rpn_head(feat)
+            rpn_cls, rpn_reg, anchors = self.rpn_outputs(feat)
             losses = rpn_loss(rpn_cls, rpn_reg, anchors, batch['gt_bboxes'],
                               batch['gt_valid'], batch['img_shape'],
                               self.rpn_train_cfg, loss_weight_mask,
@@ -139,9 +161,7 @@ class FasterRCNN(nn.Module):
                     self.roi_train_cfg, priorities=pri.get('rcnn'),
                     generator=generator)
         with record_function('step/roi_align_fwd'):
-            roi_feats = extract_roi_feats(
-                feat.permute(0, 2, 3, 1).contiguous(), sampled.rois,
-                self.featmap_stride, flatten=True)
+            roi_feats = self.roi_extract(self.roi_maps(feat), sampled.rois)
         with record_function('step/bbox_head_and_loss'):
             cls, reg, shared_feat = self.bbox_head(roi_feats)
             losses.update(bbox_loss(cls, reg, sampled, self.num_classes,
@@ -153,12 +173,11 @@ class FasterRCNN(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         """simple_test flow: RPN proposals → RoI head → per-class NMS."""
         feat = self.extract_feat(batch['image'].float())
-        anchors = self._anchors_for(feat)
-        rpn_cls, rpn_reg = self.rpn_head(feat)
+        rpn_cls, rpn_reg, anchors = self.rpn_outputs(feat)
         proposals, _, prop_valid = rpn_proposals(
             rpn_cls, rpn_reg, anchors, batch['img_shape'], self.rpn_test_cfg)
         return roi_head_predict(
-            self.bbox_head, feat.permute(0, 2, 3, 1).contiguous(), proposals,
+            self.bbox_head, self.roi_maps(feat), proposals,
             prop_valid, batch['img_shape'], self.num_classes,
             self.featmap_stride, reg_class_agnostic=False,
             target_stds=self.roi_train_cfg.target_stds,

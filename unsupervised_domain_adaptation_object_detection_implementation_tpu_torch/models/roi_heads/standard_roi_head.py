@@ -1,6 +1,6 @@
 """RoI head training and inference (counterpart of the JAX package's
 `models/roi_heads/standard_roi_head.py`: `sample_rois`, `bbox_loss`,
-`extract_roi_feats` and `roi_head_predict`).
+`extract_roi_feats`, `extract_roi_feats_fpn` and `roi_head_predict`).
 
 RoIs stay a padded (B, S, 4) tensor with validity masks; gt boxes join the
 proposals as candidates (`add_gt_as_proposals`).
@@ -8,7 +8,7 @@ proposals as candidates (`add_gt_as_proposals`).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -16,7 +16,7 @@ from ...core.bbox.assigners import max_iou_assign
 from ...core.bbox.samplers import random_sample
 from ...core.bbox.transforms import bbox2delta, delta2bbox
 from ...core.post.nms import multiclass_nms
-from ...ops.roi_align import batched_roi_align
+from ...ops.roi_align import batched_roi_align, batched_roi_align_fpn
 from ..losses import binary_cross_entropy, cross_entropy, smooth_l1_loss
 
 
@@ -156,8 +156,24 @@ def extract_roi_feats(feats: torch.Tensor, rois: torch.Tensor,
                              sampling_ratio, flatten=flatten)
 
 
+def extract_roi_feats_fpn(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                          strides: Sequence[int] = (4, 8, 16, 32),
+                          out_size: int = 7, sampling_ratio: int = 2,
+                          finest_scale: int = 56,
+                          flatten: bool = False) -> torch.Tensor:
+    """The multi-level `SingleRoIExtractor`: feats are the pyramid's
+    (B, H_l, W_l, C) NHWC levels, finest first (levels beyond `strides`
+    are ignored); each RoI (B, R, 4) is pooled from level
+    clamp(floor(log2(sqrt(area) / finest_scale))) → (B, R, o, o, C) or
+    (B, R, o·o·C) x-major. On a card this launches the multi-level CUDA
+    kernels (forward, and backward when a level needs a gradient)."""
+    return batched_roi_align_fpn(feats, rois, strides, out_size,
+                                 sampling_ratio, finest_scale=finest_scale,
+                                 flatten=flatten)
+
+
 def roi_head_predict(bbox_head_apply: Callable,
-                     feats: torch.Tensor,
+                     feats,
                      proposals: torch.Tensor,
                      prop_valid: torch.Tensor,
                      img_shape: torch.Tensor,
@@ -166,17 +182,24 @@ def roi_head_predict(bbox_head_apply: Callable,
                      reg_class_agnostic: bool = False,
                      target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2),
                      use_sigmoid_cls: bool = True,
-                     cfg: RoITestConfig = RoITestConfig()
+                     cfg: RoITestConfig = RoITestConfig(),
+                     roi_extractor: Optional[Callable] = None
                      ) -> Dict[str, torch.Tensor]:
     """RoIAlign → bbox head → decode → clip → `multiclass_nms`.
+
+    `roi_extractor` (feats, rois) → roi_feats replaces the single-level
+    extractor at `featmap_stride` (the FPN's multi-level one).
 
     A sigmoid head gets a synthesized zero background column; scores of
     padded proposals are zeroed by `prop_valid`; boxes are clipped to each
     image's (w, h, w, h). Returns dict(dets (B, max, 5), labels (B, max),
     valid (B, max)).
     """
-    roi_feats = extract_roi_feats(feats, proposals, featmap_stride,
-                                  flatten=True)
+    if roi_extractor is None:
+        roi_feats = extract_roi_feats(feats, proposals, featmap_stride,
+                                      flatten=True)
+    else:
+        roi_feats = roi_extractor(feats, proposals)
     cls, reg, _ = bbox_head_apply(roi_feats)
     cls = cls.float()
     reg = reg.float()

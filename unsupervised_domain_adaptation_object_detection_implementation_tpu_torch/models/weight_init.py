@@ -7,7 +7,9 @@ import math
 import torch
 from torch import nn
 
+from .dense_heads.rpn_head import RPNHead
 from .layers.norm import BatchNorm, FrozenBatchNorm
+from .roi_heads.bbox_head import Shared2FCBBoxHead
 
 
 @torch.no_grad()
@@ -16,8 +18,13 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
     """Fill `model` in place: conv and linear weights ~ N(0, 1/fan_in)
     (flax's lecun_normal scale, which keeps activations of order one through
     a frozen-BN ResNet), biases 0, frozen and live BN (the DA heads') as
-    the identity (scale 1, bias 0, mean 0, var 1). `generator` lives on
-    the model's device."""
+    the identity (scale 1, bias 0, mean 0, var 1); then the RPN's convs
+    ~ N(0, 0.01²) and the box head's classifier ~ N(0, 0.01²) and regressor
+    ~ N(0, 0.001²), as the reference (mmdet's `RPNHead` and `BBoxHead`)
+    initialises them. At the lecun scale those heads start with logits and
+    box deltas of order one, and the FPN config's full lr (0.01, no clip)
+    then diverges within three steps. `generator` lives on the model's
+    device."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -30,4 +37,14 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
             m.bias.zero_()
             m.mean.zero_()
             m.var.fill_(1.0)
+    for m in model.modules():
+        if isinstance(m, RPNHead):
+            layers = [(c, 0.01) for c in m.modules()
+                      if isinstance(c, nn.Conv2d)]
+        elif isinstance(m, Shared2FCBBoxHead):
+            layers = [(m.fc_cls, 0.01), (m.fc_reg, 0.001)]
+        else:
+            continue
+        for layer, std in layers:
+            layer.weight.normal_(0.0, std, generator=generator)
     return model

@@ -1,5 +1,6 @@
-"""Single-level RoIAlign: the plain torch version and the CUDA kernel's
-wrapper (counterpart of the JAX package's `ops/roi_align.py`).
+"""RoIAlign, single-level and multi-level (FPN): the plain torch versions
+and the CUDA kernels' wrappers (counterpart of the JAX package's
+`ops/roi_align.py`).
 
 What it computes (both versions): for each RoI and each of the o x o bins,
 the mean of sr x sr bilinear samples of the feature map, with the
@@ -21,6 +22,14 @@ JAX package.
   `roi_align_bwd_cuda.launches`. rois get no gradient, as in the JAX
   package.
 
+- :func:`batched_roi_align_fpn` is the multi-level entry point: each RoI
+  is pooled from the level `roi_levels` gives it. CPU tensors take
+  :func:`batched_roi_align_fpn_plain` (the JAX package's masked separable
+  form); CUDA tensors launch the kernels of `csrc/roi_align_fpn.cu`,
+  `roi_align_fpn_fwd` and, through :class:`RoIAlignFPNFunction`,
+  `roi_align_fpn_bwd` (counted in `roi_align_fpn_cuda.launches` and
+  `roi_align_fpn_bwd_cuda.launches`), or raise.
+
 `flatten=True` returns (B, R, o*o*C) in x-major (xbin, ybin, C) order, the
 order the Shared2FC head's first layer expects (the JAX package chose it
 for its TPU layout; the port keeps it so weights carry over unpermuted).
@@ -30,11 +39,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import cuda_build
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device. PyTorch's CUDA division by
+    a Python number multiplies by the number's rounded reciprocal, one bit
+    off the quotient; that would move sample positions off the kernels'
+    `__fdiv_rn` ones by an ulp (1.5e-5 px at 256 px), and the output by
+    ~1e-5 of its scale."""
+    return x / x.new_full((), d)
 
 
 def _axis_weights(lo: torch.Tensor, bin_size: torch.Tensor, out_size: int,
@@ -50,7 +68,8 @@ def _axis_weights(lo: torch.Tensor, bin_size: torch.Tensor, out_size: int,
     """
     sr = sampling_ratio
     bins = torch.arange(out_size, dtype=lo.dtype, device=lo.device)
-    samples = (torch.arange(sr, dtype=lo.dtype, device=lo.device) + 0.5) / sr
+    samples = _div(torch.arange(sr, dtype=lo.dtype, device=lo.device) + 0.5,
+                   sr)
     pos = lo[:, None, None] + \
         (bins[None, :, None] + samples[None, None, :]) * bin_size[:, None, None]
     valid = (pos >= -1.0) & (pos <= axis_len)
@@ -66,7 +85,7 @@ def _axis_weights(lo: torch.Tensor, bin_size: torch.Tensor, out_size: int,
     onehot0 = (grid == x0i[..., None]).to(lo.dtype)
     onehot1 = (grid == x1i[..., None]).to(lo.dtype)
     w = w0[..., None] * onehot0 + w1[..., None] * onehot1
-    return w.sum(dim=2) / sr                                 # (R, out, L)
+    return _div(w.sum(dim=2), sr)                            # (R, out, L)
 
 
 def _roi_weights(rois: torch.Tensor, spatial_scale: float, out_size: int,
@@ -81,23 +100,26 @@ def _roi_weights(rois: torch.Tensor, spatial_scale: float, out_size: int,
     if not aligned:  # legacy: clamp to min size 1
         roi_w = roi_w.clamp(min=1.0)
         roi_h = roi_h.clamp(min=1.0)
-    wx = _axis_weights(x1, roi_w / out_size, out_size, sampling_ratio, w)
-    wy = _axis_weights(y1, roi_h / out_size, out_size, sampling_ratio, h)
+    wx = _axis_weights(x1, _div(roi_w, out_size), out_size, sampling_ratio, w)
+    wy = _axis_weights(y1, _div(roi_h, out_size), out_size, sampling_ratio, h)
     return wx, wy
 
 
 def batched_roi_align_plain(feats: torch.Tensor, rois: torch.Tensor,
                             spatial_scale: float, out_size: int = 7,
                             sampling_ratio: int = 2, aligned: bool = True,
-                            flatten: bool = False,
-                            roi_chunk: int = 128) -> torch.Tensor:
+                            flatten: bool = False, roi_chunk: int = 128,
+                            roi_mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """(B,H,W,C) x (B,R,4) → (B,R,o,o,C), or (B,R,o·o·C) x-major.
 
     The JAX package's separable form: x-interpolation first into a
     (chunk, H, o, C) intermediate, then y-interpolation, f32 accumulation,
     the intermediate and result stored in the feature dtype (so a bf16 run
     rounds where the JAX one does). RoIs go in chunks of `roi_chunk` to
-    bound the intermediate.
+    bound the intermediate. `roi_mask` (B, R), where given, multiplies each
+    RoI's x weights (0 gives an exact zero output), as the JAX package's FPN
+    form folds in its level one-hot.
     """
     b, h, w, c = feats.shape
     n = rois.shape[1]
@@ -106,6 +128,8 @@ def batched_roi_align_plain(feats: torch.Tensor, rois: torch.Tensor,
     for bi in range(b):
         wx, wy = _roi_weights(rois[bi].float(), spatial_scale, out_size,
                               sampling_ratio, aligned, h, w)
+        if roi_mask is not None:
+            wx = wx * roi_mask[bi].to(wx.dtype)[:, None, None]
         f = feats[bi].float()
         for lo in range(0, n, roi_chunk):
             wx_c = wx[lo:lo + roi_chunk].to(dt).float()
@@ -281,3 +305,242 @@ def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor,
 
 
 batched_roi_align.launches = 0
+
+
+# ---- multi-level (FPN) RoIAlign -------------------------------------------
+
+_MAX_LEVELS = 4       # kMaxLevels of csrc/roi_align_fpn.cu
+
+
+def roi_levels(rois: torch.Tensor, num_levels: int,
+               finest_scale: int = 56) -> torch.Tensor:
+    """The FPN level of each RoI (B, R, 4) → (B, R) int32: clamp(floor(
+    log2(sqrt(area) / finest_scale + 1e-6)), 0, num_levels - 1), in f32 as
+    the JAX package computes it."""
+    scale = torch.sqrt((rois[..., 2] - rois[..., 0]).clamp(min=0) *
+                       (rois[..., 3] - rois[..., 1]).clamp(min=0))
+    lvl = torch.floor(torch.log2(_div(scale, finest_scale) + 1e-6))
+    return lvl.clamp(0, num_levels - 1).to(torch.int32)
+
+
+def batched_roi_align_fpn_plain(feats: Sequence[torch.Tensor],
+                                rois: torch.Tensor,
+                                strides: Sequence[int] = (4, 8, 16, 32),
+                                out_size: int = 7, sampling_ratio: int = 2,
+                                aligned: bool = True, finest_scale: int = 56,
+                                flatten: bool = False, roi_chunk: int = 128
+                                ) -> torch.Tensor:
+    """Multi-level RoIAlign, the JAX package's separable form: every level
+    runs for every RoI with the one-hot of the RoI's level (`roi_levels`)
+    folded into its x weights, and the levels' outputs are summed (the
+    off-level terms are exact zeros). feats: one (B, H_l, W_l, C) map per
+    stride (more are ignored)."""
+    lvl = roi_levels(rois, len(strides), finest_scale)
+    total = None
+    for i, s in enumerate(strides):
+        out = batched_roi_align_plain(feats[i], rois, 1.0 / s, out_size,
+                                      sampling_ratio, aligned, flatten,
+                                      roi_chunk, roi_mask=lvl == i)
+        total = out if total is None else total + out
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def _fpn_kernel_lib() -> ctypes.CDLL:
+    lib = cuda_build.load('roi_align_fpn.cu')
+    ints = [ctypes.c_int] * 6
+    for fn in (lib.roi_align_fpn_fwd, lib.roi_align_fpn_bwd):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       *ints, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_fpn_args(x: torch.Tensor, shapes, rois: torch.Tensor,
+                    levels: torch.Tensor, strides, out_size: int,
+                    sampling_ratio: int) -> None:
+    """Raise on anything the kernels of `csrc/roi_align_fpn.cu` do not
+    take: `x` is the forward's first level or the backward's gradient,
+    `shapes` the levels' (B, H, W, C)."""
+    b, c = shapes[0][0], shapes[0][3]
+    _check_kernel_args(x, rois, b, out_size, sampling_ratio)
+    if not 1 <= len(shapes) <= _MAX_LEVELS or len(strides) != len(shapes):
+        raise ValueError(f'{len(shapes)} levels for {len(strides)} strides '
+                         f'(1..{_MAX_LEVELS} levels)')
+    for s in shapes:
+        if len(s) != 4 or s[0] != b or s[3] != c or min(s) < 1:
+            raise ValueError(f'level shapes {shapes} are not (B, H_l, W_l, '
+                             'C) with one B and C')
+    if levels.dtype != torch.int32 or levels.device != x.device or \
+            tuple(levels.shape) != tuple(rois.shape[:2]) or \
+            not levels.is_contiguous():
+        raise ValueError(f'levels must be contiguous int32 '
+                         f'{tuple(rois.shape[:2])} on {x.device}, got '
+                         f'{levels.dtype} {tuple(levels.shape)} on '
+                         f'{levels.device}')
+
+
+def _fpn_launch(fn, name, ptrs, shapes, strides, rois, levels, out_ptr, n,
+                out_size, sampling_ratio, aligned, flatten, dtype, vec,
+                device):
+    k = len(shapes)
+    err = fn((ctypes.c_void_p * k)(*ptrs),
+             (ctypes.c_int * k)(*[s[1] for s in shapes]),
+             (ctypes.c_int * k)(*[s[2] for s in shapes]),
+             (ctypes.c_float * k)(*[1.0 / s for s in strides]), k,
+             rois.data_ptr(), levels.data_ptr(), out_ptr, shapes[0][0],
+             shapes[0][3], n, out_size, sampling_ratio, int(aligned),
+             int(flatten), _DTYPE_CODES[dtype], vec,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{name} launch failed: cudaError {err}')
+
+
+def roi_align_fpn_cuda(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                       levels: torch.Tensor,
+                       strides: Sequence[int] = (4, 8, 16, 32),
+                       out_size: int = 7, sampling_ratio: int = 2,
+                       aligned: bool = True, flatten: bool = False
+                       ) -> torch.Tensor:
+    """Launch the forward kernel `roi_align_fpn_fwd`: each RoI (B, R, 4)
+    samples the level `levels` (B, R) int32 gives it, from one (B, H_l,
+    W_l, C) map per stride, f32 or bf16 → (B, R, o, o, C), or (B, R, o·o·C)
+    x-major. One launch for all levels; raises on anything the kernel does
+    not take. Records no gradient."""
+    feats = tuple(feats)
+    if any(f.dim() != 4 for f in feats):
+        raise ValueError('expected feats (B,H,W,C) per level')
+    shapes = [tuple(f.shape) for f in feats]
+    _check_fpn_args(feats[0], shapes, rois, levels, strides, out_size,
+                    sampling_ratio)
+    for f in feats[1:]:
+        _check_kernel_args(f, rois, shapes[0][0], out_size, sampling_ratio)
+        if f.dtype != feats[0].dtype:
+            raise TypeError('levels of one dtype expected')
+    b, c, n = shapes[0][0], shapes[0][3], rois.shape[1]
+    dt = feats[0].dtype
+    shape = (b, n, out_size * out_size * c) if flatten else \
+        (b, n, out_size, out_size, c)
+    out = torch.empty(shape, dtype=dt, device=rois.device)
+    if b * n == 0:
+        return out
+    vec = _VEC[dt]
+    if c % vec or any(t.data_ptr() % 16 for t in (*feats, out)):
+        vec = 1
+    lib = _fpn_kernel_lib()
+    with torch.cuda.device(rois.device):
+        _fpn_launch(lib.roi_align_fpn_fwd, 'roi_align_fpn_fwd',
+                    [f.data_ptr() for f in feats], shapes, strides, rois,
+                    levels, out.data_ptr(), n, out_size, sampling_ratio,
+                    aligned, flatten, dt, vec, rois.device)
+    roi_align_fpn_cuda.launches += 1
+    return out
+
+
+roi_align_fpn_cuda.launches = 0
+
+
+def roi_align_fpn_bwd_cuda(grad: torch.Tensor, rois: torch.Tensor,
+                           levels: torch.Tensor,
+                           shapes: Sequence[Tuple[int, int, int, int]],
+                           strides: Sequence[int] = (4, 8, 16, 32),
+                           out_size: int = 7, sampling_ratio: int = 2,
+                           aligned: bool = True, flatten: bool = False
+                           ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel `roi_align_fpn_bwd`: the gradient with
+    respect to each level's (B, H_l, W_l, C) map of the forward's output
+    gradient `grad` (either layout, f32 or bf16). Each RoI adds only into
+    its own level. Sums in one f32 buffer (zeroed here, one view per level)
+    and returns the levels in `grad`'s dtype."""
+    shapes = [tuple(s) for s in shapes]
+    _check_fpn_args(grad, shapes, rois, levels, strides, out_size,
+                    sampling_ratio)
+    b, c, n = shapes[0][0], shapes[0][3], rois.shape[1]
+    shape = (b, n, out_size * out_size * c) if flatten else \
+        (b, n, out_size, out_size, c)
+    if tuple(grad.shape) != shape:
+        raise ValueError(f'grad shape {tuple(grad.shape)}, expected {shape}')
+    sizes = [b * h * w * c for _, h, w, _ in shapes]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad.device)
+    grads = [v.view(s) for v, s in zip(flat.split(sizes), shapes)]
+    if b * n:
+        vec = _VEC[grad.dtype]
+        if c % vec or any(t.data_ptr() % 16 for t in (grad, *grads)):
+            vec = 1
+        lib = _fpn_kernel_lib()
+        with torch.cuda.device(grad.device):
+            _fpn_launch(lib.roi_align_fpn_bwd, 'roi_align_fpn_bwd',
+                        [g.data_ptr() for g in grads], shapes, strides, rois,
+                        levels, grad.data_ptr(), n, out_size, sampling_ratio,
+                        aligned, flatten, grad.dtype, vec, grad.device)
+        roi_align_fpn_bwd_cuda.launches += 1
+    if grad.dtype == torch.float32:
+        return tuple(grads)
+    return tuple(g.to(grad.dtype) for g in grads)
+
+
+roi_align_fpn_bwd_cuda.launches = 0
+
+
+class RoIAlignFPNFunction(torch.autograd.Function):
+    """Multi-level RoIAlign on CUDA with a gradient: the forward launches
+    `roi_align_fpn_fwd`, the backward `roi_align_fpn_bwd`; rois and levels
+    get no gradient. `args` = (strides, out_size, sampling_ratio, aligned,
+    flatten); the levels' maps follow it."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, args, *feats):
+        ctx.save_for_backward(rois, levels)
+        ctx.shapes = [tuple(f.shape) for f in feats]
+        ctx.args = args
+        return roi_align_fpn_cuda(feats, rois, levels, *args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, levels = ctx.saved_tensors
+        grads = (None,) * len(ctx.shapes)
+        if any(ctx.needs_input_grad[3:]):
+            grads = roi_align_fpn_bwd_cuda(grad.contiguous(), rois, levels,
+                                           ctx.shapes, *ctx.args)
+        return (None, None, None, *grads)
+
+
+def batched_roi_align_fpn(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                          strides: Sequence[int] = (4, 8, 16, 32),
+                          out_size: int = 7, sampling_ratio: int = 2,
+                          aligned: bool = True, finest_scale: int = 56,
+                          flatten: bool = False) -> torch.Tensor:
+    """Multi-level (FPN) RoIAlign: each RoI (B, R, 4) is pooled from the
+    level `roi_levels` gives it, among one (B, H_l, W_l, C) map per stride
+    (a neck's further levels are ignored and get no gradient) → (B, R, o,
+    o, C), or (B, R, o·o·C) x-major with `flatten=True`.
+
+    CPU tensors take the plain version (and its autograd). CUDA tensors
+    launch `roi_align_fpn_fwd` (counted in `roi_align_fpn_cuda.launches`)
+    or raise; when grad is recorded and a level requires it, through
+    :class:`RoIAlignFPNFunction`, whose backward launches
+    `roi_align_fpn_bwd` (counted in `roi_align_fpn_bwd_cuda.launches`).
+    """
+    feats = tuple(feats)
+    if len(feats) < len(strides):
+        raise ValueError(f'{len(feats)} feature maps for {len(strides)} '
+                         'strides')
+    feats = feats[:len(strides)]
+    rois = rois.detach()
+    device = feats[0].device
+    if device.type == 'cpu':
+        return batched_roi_align_fpn_plain(feats, rois, strides, out_size,
+                                           sampling_ratio, aligned,
+                                           finest_scale, flatten)
+    if device.type == 'cuda':
+        levels = roi_levels(rois, len(strides), finest_scale).contiguous()
+        args = (tuple(strides), out_size, sampling_ratio, aligned, flatten)
+        if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
+            return RoIAlignFPNFunction.apply(rois, levels, args, *feats)
+        return roi_align_fpn_cuda(feats, rois, levels, *args)
+    raise ValueError(f'no RoIAlign for device {device}')

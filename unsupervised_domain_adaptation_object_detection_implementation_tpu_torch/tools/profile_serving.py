@@ -8,9 +8,10 @@ Builds the detector with seeded random weights, answers requests of two
 seeded 1024x2048 images, and reports:
 
 - per-stage times on the host clock, each stage ending in a synchronize:
-  preprocess (pipeline on the card), trunk, RPN head, proposals (top-k,
-  decode, NMS), RoI head (RoIAlign + Shared2FC + decode + multiclass NMS),
-  and inside the RoI head RoIAlign and Shared2FC alone;
+  preprocess (pipeline on the card), trunk (with the FPN neck for the FPN
+  detector), RPN head (over every level), proposals (top-k, decode, NMS),
+  RoI head (RoIAlign + Shared2FC + decode + multiclass NMS), and inside the
+  RoI head RoIAlign and Shared2FC alone;
 - the whole `inference_detector` call per request, and the same request
   split into pipeline, `predict`, and copy-back with per-class packing;
 - a `torch.profiler` trace of whole requests: device busy time (sum of
@@ -35,12 +36,44 @@ import torch
 from ..apis import inference_detector, init_detector, prepare_batch
 from ..core.bbox.transforms import bbox2result
 from ..models.dense_heads.rpn_head import rpn_proposals
-from ..models.roi_heads.standard_roi_head import (extract_roi_feats,
-                                                  roi_head_predict)
+from ..models.roi_heads.standard_roi_head import roi_head_predict
+
+
+def _stages(model, image):
+    """The detector's serving stages as (name, fn) pairs; each fn takes the
+    previous stage's output. Every detector splits alike through the
+    surface they share (`rpn_outputs`, `roi_maps`, `roi_extract`): trunk
+    (with the neck), RPN head, proposals, RoI head."""
+    img_shape = image['img_shape']
+
+    def proposals(out):
+        feats, cls, reg, anchors = out
+        props, _, valid = rpn_proposals(cls, reg, anchors, img_shape,
+                                        model.rpn_test_cfg)
+        return model.roi_maps(feats), props, valid
+
+    def roi_head(out):
+        feats, props, valid = out
+        roi_head_predict(
+            model.bbox_head, feats, props, valid, img_shape,
+            model.num_classes,
+            target_stds=model.roi_train_cfg.target_stds,
+            use_sigmoid_cls=model.roi_train_cfg.use_sigmoid_cls,
+            cfg=model.roi_test_cfg, roi_extractor=model.roi_extract)
+        return out
+
+    def roi_align(out):
+        feats, props, _ = out
+        return model.roi_extract(feats, props)
+
+    return [('trunk', lambda _: model.extract_feat(image['image'])),
+            ('rpn_head', lambda feats: (feats, *model.rpn_outputs(feats))),
+            ('proposals', proposals), ('roi_head', roi_head),
+            ('roi_head.roi_align', roi_align),
+            ('roi_head.bbox_head', model.bbox_head)]
 
 
 def _stage_times(bundle, imgs):
-    model = bundle.model
     times = {}
 
     def mark(name, t0):
@@ -54,27 +87,10 @@ def _stage_times(bundle, imgs):
     batch, _ = prepare_batch(bundle, imgs)
     t = mark('preprocess', t)
     with torch.inference_mode():
-        feat = model.extract_feat(batch['image'])
-        t = mark('trunk', t)
-        rpn_cls, rpn_reg = model.rpn_head(feat)
-        t = mark('rpn_head', t)
-        proposals, _, valid = rpn_proposals(
-            rpn_cls, rpn_reg, model._anchors_for(feat), batch['img_shape'],
-            model.rpn_test_cfg)
-        t = mark('proposals', t)
-        feats = feat.permute(0, 2, 3, 1).contiguous()
-        roi_head_predict(
-            model.bbox_head, feats, proposals, valid, batch['img_shape'],
-            model.num_classes, model.featmap_stride,
-            target_stds=model.roi_train_cfg.target_stds,
-            use_sigmoid_cls=model.roi_train_cfg.use_sigmoid_cls,
-            cfg=model.roi_test_cfg)
-        t = mark('roi_head', t)
-        roi_feats = extract_roi_feats(feats, proposals, model.featmap_stride,
-                                      flatten=True)
-        t = mark('roi_head.roi_align', t)
-        model.bbox_head(roi_feats)
-        mark('roi_head.bbox_head', t)
+        out = None
+        for name, fn in _stages(bundle.model, batch):
+            out = fn(out)
+            t = mark(name, t)
     return times
 
 

@@ -1,4 +1,4 @@
-"""Where a DA train step's time goes on a CUDA card.
+"""Where a train step's time goes on a CUDA card.
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train \
         [--config configs/da/faster_rcnn_r50_daf_c2f.py] [--steps 5] \
@@ -6,7 +6,9 @@
 
 Builds the trainer with seeded random weights (past the lr warmup, as
 `chip_smoke.py` runs it) and a seeded batch of one source and one target
-image of 512x1024, and reports:
+image of 512x1024 (the domains matter to the DA detectors only; the FPN
+config, configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py, trains on
+both images), and reports:
 
 - the whole `trainer.step` on the host clock, ending in a synchronize, and
   the process's CPU time in it, over all its threads (autograd runs the
@@ -14,8 +16,9 @@ image of 512x1024, and reports:
   near the wall time means the host was busy the whole step;
 - a `torch.profiler` trace of whole steps, read per stage from the
   `step/...` ranges that the step itself opens (trunk with the GRL heads,
-  RPN head and loss, proposals, RoI sampling, RoIAlign, Shared2FC and box
-  loss, DA losses, backward, SGD with the guard and the EMA): each
+  or trunk and FPN neck; RPN head and loss, proposals, RoI sampling,
+  RoIAlign, Shared2FC and box loss, DA losses, backward, SGD with the guard
+  and the EMA): each
   stage's host time (the profiler roughly doubles it), and the device
   time of the work launched while it was open; then the device busy time
   per step, its idle share of the unprofiled step, and the kernels that

@@ -85,6 +85,7 @@ class Registry:
 # The registries the port uses (the JAX package's `utils/registry.py` has more).
 MODELS = Registry('models')
 BACKBONES = Registry('backbones', parent=MODELS)
+NECKS = Registry('necks', parent=MODELS)
 HEADS = Registry('heads', parent=MODELS)
 DETECTORS = Registry('detectors', parent=MODELS)
 PIPELINES = Registry('pipelines')
