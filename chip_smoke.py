@@ -11,44 +11,46 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    limit line.
 2. build — compile every `csrc/*.cu` of the port for sm_90a (one `nvcc` per
    source, in parallel) into `build/kernels/`.
-3. kernels — call each kernel's wrapper at its main path's shapes, hold it
-   against its plain torch version (f32 with TF32 off, and bf16; both
-   layouts), and time kernel and plain version with CUDA events: the
-   single-level RoIAlign forward at the DC5 serving shape, its backward at
-   the training shape, each also through the multi-level kernel at one
-   level (same result, timed beside it); the multi-level (FPN) RoIAlign
-   forward on the pyramid of the 608x1024 serving canvas (and once at
-   o=14), its backward on the pyramid of the 512x1024 training canvas, with
-   the RoI count per level.
+3. kernels — call the RoIAlign kernel pair
+   (`csrc/roi_align_pyramid.cu`: one forward, one backward, for one level
+   or several) through its wrappers at each path's shapes, hold it against
+   the plain torch versions (f32 with TF32 off, and bf16; both layouts),
+   and time kernel and plain version with CUDA events: at one level the
+   forward at the DC5 serving shape and the backward at the training shape;
+   on four levels the forward on the pyramid of the 608x1024 serving canvas
+   (and once at o=14) and the backward on the pyramid of the 512x1024
+   training canvas, with the RoI count per level. The backward logs its
+   f32 atomic adds, those of the earlier design beside its own.
 4. serving — `init_detector` on the flagship config
    (configs/da/faster_rcnn_r50_daf_c2f.py: DAFasterRCNN, R50-DC5, full
    width) with seeded random weights, then 4 requests of 2 Cityscapes-size
    images through `inference_detector`. The kernel launch counts are set to
-   0 just before and read just after; every request must go through each
-   kernel. Outputs must be well-formed and finite, and on the last request's
-   proposals the kernel's RoI features must match the plain version's.
+   0 just before and read just after; every request must launch the
+   forward once and the backward never. Outputs must be well-formed and
+   finite, and on the last request's proposals the kernel's RoI features
+   must match the plain version's.
 5. train — `init_trainer` on the same config (R50-DC5, 'daf', full width,
    f32) with seeded random weights; 1 warm-up and 5 timed steps, past the
    lr warmup, on a seeded batch of 2 images of 512x1024 (one source, one
-   target). Every step must
-   give finite losses and launch the RoIAlign forward and backward kernels
+   target). Every step must give finite losses and launch the RoIAlign forward and backward kernels
    once each (counts set to 0 before the step, read after). Afterwards the
    frozen stem and layer1 are bit-identical, every other parameter, the DA
-   heads' BatchNorm statistics and the EMA have moved.
+   heads' BatchNorm statistics and the EMA have moved. Then the RoIs that a
+   step of the trained model samples hold the pair to the plain version,
+   and the backward is timed on them.
 6. FPN serving — `init_detector` on the Cityscapes Faster R-CNN R50-FPN
    config (configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py, full
-   width: R50, 256-channel FPN P2–P6, 8 classes), 4 requests as in 4: each
-   request launches the FPN RoIAlign forward once and the single-level one
-   never; the kernel's RoI features on the last request's proposals match
-   the plain version's.
+   width: R50, 256-channel FPN P2–P6, 8 classes), 4 requests as in 4, each
+   launching the forward once for all levels; the kernel's RoI features
+   on the last request's proposals match the plain version's.
 7. FPN train — `init_trainer` on the same config, 1 warm-up and 5 timed
    steps past the lr warmup on the 2 images of 512x1024: each step
-   launches the FPN RoIAlign forward and backward kernels once each;
+   launches the RoIAlign forward and backward kernels once each;
    afterwards the frozen stem and layer1 are bit-identical and every other
    parameter (neck and RPN included) has moved (the config asks for no
    EMA). Then the RoIs that a step of the trained model samples, from gt
-   boxes on every level, hold both FPN kernels to the plain version on all
-   four levels.
+   boxes on every level, hold the pair to the plain version on all four
+   levels, and the backward is timed on them.
 8. reference — the tiny-fixture DC5 detector and a tiny FPN detector (the
    FPN config with an R18 trunk, a 64-channel neck and 2 classes) on the
    card against the same weights on the CPU (plain versions), TF32 off:
@@ -102,6 +104,16 @@ FPN_TINY = {'model.backbone_depth': 18, 'model.neck_channels': 64,
                                         img_scale=(192, 128))]}
 FPN_TINY_SEED = 9
 FPN_STRIDES = (4, 8, 16, 32)
+FPN_SCALES = tuple(1 / s for s in FPN_STRIDES)
+# the kernel pair's entries in the kernels line, one per path shape: the
+# DC5 serving and training shapes, the RoIs a DC5 step samples, and the
+# same on the FPN path
+FWD_DC5, BWD_DC5, BWD_DC5_STEP = ('roi_align_pyramid_fwd/dc5',
+                                  'roi_align_pyramid_bwd/dc5',
+                                  'roi_align_pyramid_bwd/dc5_step')
+FWD_FPN, BWD_FPN, BWD_FPN_STEP = ('roi_align_pyramid_fwd/fpn',
+                                  'roi_align_pyramid_bwd/fpn',
+                                  'roi_align_pyramid_bwd/fpn_step')
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 # f32: kernel and plain version sum the same few (<= 16) weighted taps per
@@ -196,12 +208,17 @@ def make_rois(gen, b, n, h, w, stride=16):
 
 def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16):
     """What this run's RoIs (per image, (R, 4)) make RoIAlign touch: the
-    feature pixels any nonzero tap reads, and the nonzero (sample, tap)
-    products over all bins, per channel."""
+    feature pixels any nonzero tap reads (per image, over all its RoIs), the
+    nonzero (sample, tap) products over all bins, per channel, and the
+    distinct (RoI, pixel) pairs with a nonzero weight: one float4 atomic
+    each per channel vector in the backward kernel, where the nonzero
+    products were one each before."""
     wx, wy = zip(*(roi_align._roi_weights(r, scale, out_size, sr, True, h, w)
                    for r in rois))
     touched = sum(int(((y.sum(1) != 0).float().T @ (x.sum(1) != 0).float()
                        > 0).sum()) for x, y in zip(wx, wy))
+    pairs = sum(int(((x.sum(1) != 0).sum(1) * (y.sum(1) != 0).sum(1)).sum())
+                for x, y in zip(wx, wy))
 
     def taps_per_bin(lo, size, length):      # nonzero taps per bin, (R, o)
         s = (torch.arange(sr, device=lo.device) + 0.5) / sr
@@ -215,7 +232,7 @@ def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16):
     sc = torch.cat([r.reshape(-1, 4) for r in rois]) * scale
     nx = taps_per_bin(sc[:, 0] - 0.5, (sc[:, 2] - sc[:, 0]) / out_size, w)
     ny = taps_per_bin(sc[:, 1] - 0.5, (sc[:, 3] - sc[:, 1]) / out_size, h)
-    return touched, int((nx.sum(1) * ny.sum(1)).sum())
+    return touched, int((nx.sum(1) * ny.sum(1)).sum()), pairs
 
 
 def roi_align_work(rois, h, w, c, out_size=7, backward=False):
@@ -226,7 +243,7 @@ def roi_align_work(rois, h, w, c, out_size=7, backward=False):
     RoIs (the zeroing pass that the kernel's atomics need is its own
     overhead, not part of the function); one scale per gradient element,
     one multiply and one add per nonzero product and channel."""
-    touched, products = roi_align_taps(rois, h, w, out_size)
+    touched, products, _ = roi_align_taps(rois, h, w, out_size)
     b, n = rois.shape[:2]
     n_out = b * n * out_size * out_size * c
     feat_bytes = b * h * w * c if backward else touched * c
@@ -242,8 +259,9 @@ def roi_align_fpn_work(rois, levels, sizes, c, out_size=7, backward=False):
     for lvl, ((h, w), s) in enumerate(zip(sizes, FPN_STRIDES)):
         if not (levels == lvl).any():
             continue
-        t, p = roi_align_taps([r[lv == lvl] for r, lv in zip(rois, levels)],
-                              h, w, out_size, scale=1 / s)
+        t, p, _ = roi_align_taps(
+            [r[lv == lvl] for r, lv in zip(rois, levels)], h, w, out_size,
+            scale=1 / s)
         touched, products = touched + t, products + p
     b, n = rois.shape[:2]
     n_out = b * n * out_size * out_size * c
@@ -253,16 +271,22 @@ def roi_align_fpn_work(rois, levels, sizes, c, out_size=7, backward=False):
         2 * products * c + n_out
 
 
-def _entry(name, replaces, nbytes, ops, source='roi_align.cu', **numbers):
+def _entry(name, replaces, nbytes, ops, **numbers):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_FLOPS * 1e3
     return dict(
-        name=name, route='cuda', source=f'{PKG}/csrc/{source}',
+        name=name, route='cuda', source=f'{PKG}/csrc/roi_align_pyramid.cu',
         replaces='unsupervised_domain_adaptation_object_detection_'
                  f'implementation_tpu/ops/roi_align_pallas.py:{replaces}',
         launches=None, **numbers, bound_ms=max(bytes_ms, ops_ms),
         bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
         library_ms=None)
+
+
+def _set_launches(kernels, name, n):
+    for entry in kernels:
+        if entry['name'] == name:
+            entry['launches'] = n
 
 
 def _check(name, got, ref, tol, what):
@@ -280,6 +304,44 @@ def _check(name, got, ref, tol, what):
     return err
 
 
+def atomic_adds(rois, sizes, strides, c, levels=None, out_size=7):
+    """The backward's f32 atomic adds on this run's RoIs: one per nonzero
+    (sample, tap) product and channel in the earlier design (a scatter of
+    every tap), one per distinct (RoI, pixel) pair and channel in
+    roi_align_pyramid_bwd."""
+    old = new = 0
+    for lvl, ((h, w), s) in enumerate(zip(sizes, strides)):
+        per = rois if levels is None else \
+            [r[lv == lvl] for r, lv in zip(rois, levels)]
+        if sum(len(r) for r in per):
+            _, products, pairs = roi_align_taps(per, h, w, out_size,
+                                                scale=1 / s)
+            old, new = old + products * c, new + pairs * c
+    return old, new
+
+
+def dc5_fwd(feats, rois, flatten=True, out_size=7):
+    """The kernel pair's forward on the single-level path: one level at
+    stride 16, no level array (as `batched_roi_align` launches it)."""
+    return roi_align.roi_align_pyramid_cuda([feats], rois, None, (1 / 16,),
+                                            out_size, flatten=flatten)
+
+
+def dc5_bwd(grad, rois, shape, flatten=True):
+    return roi_align.roi_align_pyramid_bwd_cuda(
+        grad, rois, None, [shape], (1 / 16,), flatten=flatten)[0]
+
+
+def fpn_fwd(feats, rois, levels, flatten=True, out_size=7):
+    return roi_align.roi_align_pyramid_cuda(feats, rois, levels, FPN_SCALES,
+                                            out_size, flatten=flatten)
+
+
+def fpn_bwd(grad, rois, levels, shapes, flatten=True):
+    return roi_align.roi_align_pyramid_bwd_cuda(grad, rois, levels, shapes,
+                                                FPN_SCALES, flatten=flatten)
+
+
 def plain_backward(feats, rois, grad, flatten):
     """d feats of the plain version, by its autograd."""
     f = feats.detach().requires_grad_()
@@ -287,7 +349,49 @@ def plain_backward(feats, rois, grad, flatten):
     return torch.autograd.grad(out, f, grad)[0]
 
 
+def plain_fpn_backward(feats, rois, grad, out_size, flatten):
+    """d feats of every level of the plain multi-level version, by its
+    autograd."""
+    fs = [f.detach().requires_grad_() for f in feats]
+    out = roi_align.batched_roi_align_fpn_plain(
+        fs, rois, out_size=out_size, flatten=flatten)
+    return torch.autograd.grad(out, fs, grad)
+
+
+def plain_backward_ms(plain, feats, grad):
+    """The plain version's backward alone, by its autograd on a kept graph
+    (`plain(feats)` builds the forward)."""
+    fs = [f.detach().requires_grad_() for f in feats]
+    out = plain(fs)
+    return time_ms(lambda: torch.autograd.grad(out, fs, grad,
+                                               retain_graph=True),
+                   3, warmup=1)
+
+
+def time_dc5_backward(name, feats, rois, grad, worst):
+    """Time the backward at one level on (feats, rois, grad) beside the
+    plain version's; log its bound and atomic adds; return its entry."""
+    b, h, w, c = feats.shape
+    shape = tuple(feats.shape)
+    ms = time_ms(lambda: dc5_bwd(grad, rois, shape), 20)
+    plain_ms = plain_backward_ms(lambda fs: roi_align.batched_roi_align_plain(
+        fs[0], rois, 1 / 16, flatten=True), [feats], grad)
+    nbytes, ops = roi_align_work(rois, h, w, c, backward=True)
+    entry = _entry(name, 303, nbytes, ops, max_abs_err=worst, ms=ms,
+                   plain_ms=plain_ms)
+    old, new = atomic_adds(rois, [(h, w)], (16,), c)
+    log(f'kernels: {name} f32 {shape} x {b}x{rois.shape[1]} rois flat g: '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}: '
+        f'{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); f32 atomic adds '
+        f'{old / 1e9:.3f} G in the earlier design (one per nonzero tap), '
+        f'{new / 1e9:.3f} G now (one per (RoI, pixel))')
+    return entry
+
+
 def phase_kernels():
+    """The kernel pair on the single-level (DC5) path: forward at the
+    serving shape, backward at the training shape."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -300,29 +404,22 @@ def phase_kernels():
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         f = feats.to(dtype).contiguous()
         for flatten in (True, False):
-            err = _check('roi_align_fwd', roi_align.roi_align_cuda(
-                f, rois, 1 / 16, 7, 2, True, flatten),
-                roi_align.batched_roi_align_plain(
-                    f, rois, 1 / 16, 7, 2, True, flatten),
-                tol, f'{str(dtype)[6:]} flatten={flatten}')
+            err = _check(FWD_DC5, dc5_fwd(f, rois, flatten),
+                         roi_align.batched_roi_align_plain(
+                             f, rois, 1 / 16, 7, 2, True, flatten),
+                         tol, f'{str(dtype)[6:]} flatten={flatten}')
             if dtype == torch.float32:
                 worst = max(worst, err)
-    ms = time_ms(lambda: roi_align.roi_align_cuda(feats, rois, 1 / 16,
-                                                  flatten=True), 20)
+    ms = time_ms(lambda: dc5_fwd(feats, rois), 20)
     plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
         feats, rois, 1 / 16, flatten=True), 3, warmup=1)
     nbytes, ops = roi_align_work(rois, h, w, c)
-    fwd = _entry('roi_align_fwd', 63, nbytes, ops, max_abs_err=worst,
-                 ms=ms, plain_ms=plain_ms)
-    log(f'kernels: roi_align_fwd f32 (2,38,64,2048) x 2x1000 rois flat: '
+    fwd = _entry(FWD_DC5, 63, nbytes, ops, max_abs_err=worst, ms=ms,
+                 plain_ms=plain_ms)
+    log(f'kernels: {FWD_DC5} f32 (2,38,64,2048) x 2x1000 rois flat: '
         f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd["bound_ms"]:.4f}'
         f' ms ({fwd["bound_by"]}: {nbytes / 1e6:.1f} MB, '
         f'{ops / 1e9:.2f} GFLOP)')
-    one_level_comparison(
-        'roi_align_fwd', ms,
-        lambda: roi_align.roi_align_cuda(feats, rois, 1 / 16, flatten=True),
-        lambda lv: roi_align.roi_align_fpn_cuda([feats], rois, lv, (16,),
-                                                flatten=True), b, n)
     del feats, rois
 
     # backward, at the training shape: 512 sampled RoIs per image
@@ -337,53 +434,14 @@ def phase_kernels():
         for flatten in (True, False):
             gl = g if flatten else \
                 g.reshape(b, n, 7, 7, c).transpose(2, 3).contiguous()
-            err = _check('roi_align_bwd', roi_align.roi_align_bwd_cuda(
-                gl, rois, shape, 1 / 16, flatten=flatten),
-                plain_backward(f, rois, gl, flatten), tol,
-                f'{str(dtype)[6:]} flatten={flatten}')
+            err = _check(BWD_DC5, dc5_bwd(gl, rois, shape, flatten),
+                         plain_backward(f, rois, gl, flatten), tol,
+                         f'{str(dtype)[6:]} flatten={flatten}')
             if dtype == torch.float32:
                 worst = max(worst, err)
             del gl
     del f, g
-    ms = time_ms(lambda: roi_align.roi_align_bwd_cuda(
-        grad, rois, shape, 1 / 16, flatten=True), 20)
-    f = feats.detach().requires_grad_()
-    out = roi_align.batched_roi_align_plain(f, rois, 1 / 16, flatten=True)
-    plain_ms = time_ms(lambda: torch.autograd.grad(out, f, grad,
-                                                   retain_graph=True),
-                       3, warmup=1)
-    del out, f
-    nbytes, ops = roi_align_work(rois, h, w, c, backward=True)
-    bwd = _entry('roi_align_bwd', 303, nbytes, ops, max_abs_err=worst,
-                 ms=ms, plain_ms=plain_ms)
-    log(f'kernels: roi_align_bwd f32 (2,32,64,2048) x 2x512 rois flat g: '
-        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bwd["bound_ms"]:.4f}'
-        f' ms ({bwd["bound_by"]}: {nbytes / 1e6:.1f} MB, '
-        f'{ops / 1e9:.2f} GFLOP; {(ops - grad.numel()) / 2e9:.2f} G f32 '
-        'atomic adds)')
-    one_level_comparison(
-        'roi_align_bwd', ms,
-        lambda: roi_align.roi_align_bwd_cuda(grad, rois, shape, 1 / 16,
-                                             flatten=True),
-        lambda lv: roi_align.roi_align_fpn_bwd_cuda(
-            grad, rois, lv, [shape], (16,), flatten=True)[0], b, n)
-    return [fwd, bwd]
-
-
-def one_level_comparison(name, ms, single, multi, b, n):
-    """The multi-level kernel run at one level (every RoI at level 0,
-    stride 16) on the single-level kernel `name`'s work: it must give the
-    same result, and its time beside `name`'s says whether one kernel
-    design could serve both paths. Times `name` again after it, in the same
-    call."""
-    zeros = torch.zeros(b, n, dtype=torch.int32, device='cuda')
-    _check(f'{name} via the FPN kernel at one level', multi(zeros),
-           single(), TOL_F32, 'float32 flatten=True')
-    multi_ms = time_ms(lambda: multi(zeros), 20)
-    again_ms = time_ms(single, 20)
-    log(f'kernels: {name}\'s work through the FPN kernel at one level: '
-        f'{multi_ms:.4f} ms; {name} {ms:.4f} ms before it, {again_ms:.4f} ms '
-        'after it')
+    return [fwd, time_dc5_backward(BWD_DC5, feats, rois, grad, worst)]
 
 
 def make_fpn_rois(gen, b, n, ih, iw):
@@ -410,15 +468,6 @@ def make_fpn_rois(gen, b, n, ih, iw):
     return rois.contiguous()
 
 
-def plain_fpn_backward(feats, rois, grad, out_size, flatten):
-    """d feats of every level of the plain multi-level version, by its
-    autograd."""
-    fs = [f.detach().requires_grad_() for f in feats]
-    out = roi_align.batched_roi_align_fpn_plain(
-        fs, rois, out_size=out_size, flatten=flatten)
-    return torch.autograd.grad(out, fs, grad)
-
-
 def _level_counts(levels):
     counts = torch.bincount(levels.flatten().long(), minlength=4).tolist()
     if not all(counts):
@@ -426,10 +475,34 @@ def _level_counts(levels):
     return counts
 
 
+def time_fpn_backward(name, feats, rois, grad, worst):
+    """`time_dc5_backward` on the four levels."""
+    levels = roi_align.roi_levels(rois, 4)
+    shapes = [tuple(f.shape) for f in feats]
+    sizes = [s[1:3] for s in shapes]
+    c = shapes[0][3]
+    ms = time_ms(lambda: fpn_bwd(grad, rois, levels, shapes), 20)
+    plain_ms = plain_backward_ms(
+        lambda fs: roi_align.batched_roi_align_fpn_plain(fs, rois,
+                                                         flatten=True),
+        feats, grad)
+    nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c, backward=True)
+    entry = _entry(name, 1121, nbytes, ops, max_abs_err=worst, ms=ms,
+                   plain_ms=plain_ms)
+    old, new = atomic_adds(rois, sizes, FPN_STRIDES, c, levels)
+    log(f'kernels: {name} f32 pyramid {sizes} C={c} x '
+        f'{rois.shape[0]}x{rois.shape[1]} rois flat g: {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
+        f'({entry["bound_by"]}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} '
+        f'GFLOP); f32 atomic adds {old / 1e9:.3f} G in the earlier design, '
+        f'{new / 1e9:.3f} G now')
+    return entry
+
+
 def phase_fpn_kernels():
-    """The multi-level RoIAlign kernels: forward on the pyramid of the
-    608x1024 serving canvas (2 x 1000 RoIs), backward on that of the
-    512x1024 training canvas (2 x 512 sampled RoIs), C = 256."""
+    """The kernel pair on the multi-level (FPN) path: forward on the
+    pyramid of the 608x1024 serving canvas (2 x 1000 RoIs), backward on
+    that of the 512x1024 training canvas (2 x 512 sampled RoIs), C = 256."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(1)
@@ -441,34 +514,29 @@ def phase_fpn_kernels():
              for h, w in sizes]
     rois = make_fpn_rois(gen, b, n, 608, 1024)
     levels = roi_align.roi_levels(rois, 4)
-    log(f'kernels: roi_align_fpn_fwd RoIs per level P2..P5 '
-        f'{_level_counts(levels)}')
+    log(f'kernels: {FWD_FPN} RoIs per level P2..P5 {_level_counts(levels)}')
     worst = 0.0
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         fs = [f.to(dtype) for f in feats]
         for flatten in (True, False):
-            err = _check('roi_align_fpn_fwd', roi_align.roi_align_fpn_cuda(
-                fs, rois, levels, flatten=flatten),
-                plain(fs, rois, flatten=flatten), tol,
-                f'{str(dtype)[6:]} flatten={flatten}')
+            err = _check(FWD_FPN, fpn_fwd(fs, rois, levels, flatten),
+                         plain(fs, rois, flatten=flatten), tol,
+                         f'{str(dtype)[6:]} flatten={flatten}')
             if dtype == torch.float32:
                 worst = max(worst, err)
         del fs
     worst = max(worst, _check(
-        'roi_align_fpn_fwd', roi_align.roi_align_fpn_cuda(
-            feats, rois, levels, out_size=14, flatten=True),
+        FWD_FPN, fpn_fwd(feats, rois, levels, out_size=14),
         plain(feats, rois, out_size=14, flatten=True),
         TOL_F32, 'float32 o=14 flatten=True'))
-    ms = time_ms(lambda: roi_align.roi_align_fpn_cuda(
-        feats, rois, levels, flatten=True), 20)
+    ms = time_ms(lambda: fpn_fwd(feats, rois, levels), 20)
     plain_ms = time_ms(lambda: plain(feats, rois, flatten=True), 3,
                        warmup=1)
     nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c)
-    fwd = _entry('roi_align_fpn_fwd', 1181, nbytes, ops,
-                 source='roi_align_fpn.cu', max_abs_err=worst, ms=ms,
+    fwd = _entry(FWD_FPN, 1181, nbytes, ops, max_abs_err=worst, ms=ms,
                  plain_ms=plain_ms)
-    log(f'kernels: roi_align_fpn_fwd f32 pyramid of 608x1024 C=256 x 2x1000 '
-        f'rois flat: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+    log(f'kernels: {FWD_FPN} f32 pyramid of 608x1024 C=256 x 2x1000 rois '
+        f'flat: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
         f'{fwd["bound_ms"]:.4f} ms ({fwd["bound_by"]}: {nbytes / 1e6:.1f} '
         f'MB, {ops / 1e9:.2f} GFLOP)')
     del feats, rois, levels
@@ -480,8 +548,7 @@ def phase_fpn_kernels():
     shapes = [tuple(f.shape) for f in feats]
     rois = make_fpn_rois(gen, b, n, 512, 1024)
     levels = roi_align.roi_levels(rois, 4)
-    log(f'kernels: roi_align_fpn_bwd RoIs per level P2..P5 '
-        f'{_level_counts(levels)}')
+    log(f'kernels: {BWD_FPN} RoIs per level P2..P5 {_level_counts(levels)}')
     grad = torch.randn(b, n, 7 * 7 * c, generator=gen, device='cuda')
     worst = 0.0
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
@@ -489,34 +556,16 @@ def phase_fpn_kernels():
         for flatten in (True, False):
             gl = g if flatten else \
                 g.reshape(b, n, 7, 7, c).transpose(2, 3).contiguous()
-            got = roi_align.roi_align_fpn_bwd_cuda(gl, rois, levels, shapes,
-                                                   flatten=flatten)
+            got = fpn_bwd(gl, rois, levels, shapes, flatten)
             ref = plain_fpn_backward(fs, rois, gl, 7, flatten)
             for lvl, (gg, rr) in enumerate(zip(got, ref)):
-                err = _check('roi_align_fpn_bwd', gg, rr, tol,
+                err = _check(BWD_FPN, gg, rr, tol,
                              f'{str(dtype)[6:]} flatten={flatten} P{lvl + 2}')
                 if dtype == torch.float32:
                     worst = max(worst, err)
             del gl, got, ref
         del fs, g
-    ms = time_ms(lambda: roi_align.roi_align_fpn_bwd_cuda(
-        grad, rois, levels, shapes, flatten=True), 20)
-    fs = [f.detach().requires_grad_() for f in feats]
-    out = plain(fs, rois, flatten=True)
-    plain_ms = time_ms(lambda: torch.autograd.grad(out, fs, grad,
-                                                   retain_graph=True),
-                       3, warmup=1)
-    del out, fs
-    nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c, backward=True)
-    bwd = _entry('roi_align_fpn_bwd', 1121, nbytes, ops,
-                 source='roi_align_fpn.cu', max_abs_err=worst, ms=ms,
-                 plain_ms=plain_ms)
-    log(f'kernels: roi_align_fpn_bwd f32 pyramid of 512x1024 C=256 x 2x512 '
-        f'rois flat g: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-        f'{bwd["bound_ms"]:.4f} ms ({bwd["bound_by"]}: {nbytes / 1e6:.1f} '
-        f'MB, {ops / 1e9:.2f} GFLOP; {(ops - grad.numel()) / 2e9:.2f} G f32 '
-        'atomic adds)')
-    return [fwd, bwd]
+    return [fwd, time_fpn_backward(BWD_FPN, feats, rois, grad, worst)]
 
 
 def _check_result(res, shape_hw, num_classes, max_det):
@@ -542,12 +591,13 @@ def _check_result(res, shape_hw, num_classes, max_det):
     return total
 
 
-def _serve(card, config, label, expect, kernels):
+def _serve(card, config, label, expect):
     """`init_detector` on `config` (full width, seeded random weights), one
     warm-up request and 4 timed requests of 2 seeded Cityscapes-size
     images. `expect` maps a kernel's name to (its launch counter, launches
     per request); the counters are set to 0 just before the timed requests
-    and checked after each. Returns the bundle and the requests."""
+    and checked after each. Returns the bundle, the requests and the
+    launch counts."""
     # serving runs with PyTorch's defaults: cuDNN convolutions in TF32,
     # matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
@@ -587,21 +637,27 @@ def _serve(card, config, label, expect, kernels):
                                    f'{i * per_request}')
     launches = {k: fn.launches for k, (fn, _) in expect.items()}
     peak = torch.cuda.max_memory_allocated()
-    for entry in kernels:
-        if launches.get(entry['name']):
-            entry['launches'] = launches[entry['name']]
     total_s = sum(latencies) / 1e3
     log(f'{label}: 4 requests x 2 images 1024x2048 -> {n_dets} dets; '
         f'latency ms {[round(x, 2) for x in latencies]} mean '
         f'{np.mean(latencies):.2f}; {8 / total_s:.2f} img/s; peak memory '
         f'{peak / 2**30:.2f} GiB; launches {launches} [{card}]')
-    return bundle, requests
+    return bundle, requests, launches
+
+
+# a request launches the kernel pair's forward once and its backward never
+SERVING_LAUNCHES = {
+    'roi_align_pyramid_fwd': (roi_align.roi_align_pyramid_cuda, 1),
+    'roi_align_pyramid_bwd': (roi_align.roi_align_pyramid_bwd_cuda, 0)}
+# a train step launches each of the pair once
+STEP_LAUNCHES = {'roi_align_pyramid_fwd': roi_align.roi_align_pyramid_cuda,
+                 'roi_align_pyramid_bwd': roi_align.roi_align_pyramid_bwd_cuda}
 
 
 def phase_main_path(card, kernels):
-    bundle, requests = _serve(
-        card, FLAGSHIP, 'main',
-        {'roi_align_fwd': (roi_align.batched_roi_align, 1)}, kernels)
+    bundle, requests, launches = _serve(card, FLAGSHIP, 'main',
+                                        SERVING_LAUNCHES)
+    _set_launches(kernels, FWD_DC5, launches['roi_align_pyramid_fwd'])
 
     # the kernel's RoI features on the last request's real proposals
     torch.backends.cudnn.allow_tf32 = False
@@ -612,8 +668,7 @@ def phase_main_path(card, kernels):
         proposals, _, valid = rpn_proposals(
             *model.rpn_outputs(feat), batch['img_shape'], model.rpn_test_cfg)
         feats = model.roi_maps(feat)
-        got = roi_align.roi_align_cuda(feats, proposals, 1 / 16,
-                                       flatten=True)
+        got = dc5_fwd(feats, proposals)
         ref = roi_align.batched_roi_align_plain(feats, proposals, 1 / 16,
                                                 flatten=True)
     err = float((got - ref).abs().max())
@@ -625,10 +680,9 @@ def phase_main_path(card, kernels):
 
 
 def phase_fpn_serving(card, kernels):
-    bundle, requests = _serve(
-        card, FPN, 'fpn serving',
-        {'roi_align_fpn_fwd': (roi_align.roi_align_fpn_cuda, 1),
-         'roi_align_fwd': (roi_align.batched_roi_align, 0)}, kernels)
+    bundle, requests, launches = _serve(card, FPN, 'fpn serving',
+                                        SERVING_LAUNCHES)
+    _set_launches(kernels, FWD_FPN, launches['roi_align_pyramid_fwd'])
 
     # the kernel's RoI features on the last request's real proposals
     torch.backends.cudnn.allow_tf32 = False
@@ -640,8 +694,7 @@ def phase_fpn_serving(card, kernels):
             *model.rpn_outputs(feats), batch['img_shape'], model.rpn_test_cfg)
         pyramid = model.roi_maps(feats)
         levels = roi_align.roi_levels(proposals, 4)
-        got = roi_align.roi_align_fpn_cuda(pyramid, proposals, levels,
-                                           flatten=True)
+        got = fpn_fwd(pyramid, proposals, levels)
         ref = roi_align.batched_roi_align_fpn_plain(pyramid, proposals,
                                                     flatten=True)
     err = float((got - ref).abs().max())
@@ -734,9 +787,7 @@ def _train_summary(label, what, times, peak, totals, card):
 
 def phase_train(card, kernels):
     trainer, state, start, times, totals, peak = _train(
-        card, FLAGSHIP, CITYSCAPES_STEPS, 'train',
-        {'roi_align_fwd': roi_align.batched_roi_align,
-         'roi_align_bwd': roi_align.roi_align_bwd_cuda})
+        card, FLAGSHIP, CITYSCAPES_STEPS, 'train', STEP_LAUNCHES)
     params = trainer.state.params
     da_stats = {f'{m_name}.{b}': getattr(m, b)
                 for m_name, m in trainer.model.named_modules()
@@ -760,32 +811,29 @@ def phase_train(card, kernels):
         ema_apart += not torch.equal(state.ema_params[n], p.detach())
     if not ema_apart:
         raise RuntimeError('the EMA equals the parameters on every leaf')
-    for entry in kernels:
-        if entry['name'] == 'roi_align_bwd':
-            entry['launches'] = totals['roi_align_bwd']
     log(_train_summary('train', 'R50-DC5 daf f32', times, peak, totals, card)
         + f'; {moved} parameters moved, stem and layer1 unchanged, EMA '
         f'apart from {ema_apart} of them, {len(da_stats)} DA BatchNorm '
         'statistics moved')
+    kernels.append(dc5_kernels_on_sampled_rois(trainer.model))
+    for name in (BWD_DC5, BWD_DC5_STEP):
+        _set_launches(kernels, name, totals['roi_align_pyramid_bwd'])
 
 
 def phase_fpn_train(card, kernels):
     trainer, state, start, times, totals, peak = _train(
-        card, FPN, FPN_STEPS, 'fpn train',
-        {'roi_align_fpn_fwd': roi_align.roi_align_fpn_cuda,
-         'roi_align_fpn_bwd': roi_align.roi_align_fpn_bwd_cuda})
+        card, FPN, FPN_STEPS, 'fpn train', STEP_LAUNCHES)
     moved = _moved(trainer.state.params, start, FPN_FROZEN, 'fpn train')
     if not any(n.startswith('neck.') for n in start) or \
             state.ema_params is not None:
         raise RuntimeError('FPN trainer: no neck, or an EMA the config does '
                            'not ask for')
-    for entry in kernels:
-        if entry['name'] == 'roi_align_fpn_bwd':
-            entry['launches'] = totals['roi_align_fpn_bwd']
     log(_train_summary('fpn train', 'R50-FPN f32', times, peak, totals, card)
         + f'; {moved} parameters moved (neck and RPN included), stem and '
         'layer1 unchanged; the config has no EMA')
-    fpn_kernels_on_sampled_rois(trainer.model)
+    kernels.append(fpn_kernels_on_sampled_rois(trainer.model))
+    for name in (BWD_FPN, BWD_FPN_STEP):
+        _set_launches(kernels, name, totals['roi_align_pyramid_bwd'])
 
 
 def fpn_level_batch():
@@ -807,15 +855,11 @@ def fpn_level_batch():
     return batch
 
 
-def fpn_kernels_on_sampled_rois(model):
-    """Both FPN kernels against the plain version on the RoIs that a train
-    step of the trained full-width model samples (proposals and gt boxes,
-    as `FasterRCNNFPN.loss` samples them) from `fpn_level_batch`, whose gt
-    boxes reach every level: forward, and backward on a seeded cotangent.
-    Fails if a level gets no RoI."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device='cuda').manual_seed(3)
-    batch = fpn_level_batch()
+def sample_step_rois(model, batch, seed):
+    """The RoIs that a train step of `model` samples from `batch`
+    (proposals and gt boxes, as the detectors' `loss` samples them), the
+    maps RoIAlign reads them from, and the generator that drew them."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
     with torch.no_grad():
         feats = model.extract_feat(batch['image'])
         proposals, _, valid = rpn_proposals(
@@ -825,21 +869,52 @@ def fpn_kernels_on_sampled_rois(model):
             proposals, valid, batch['gt_bboxes'], batch['gt_labels'],
             batch['gt_valid'], model.num_classes, model.roi_train_cfg,
             generator=gen)
-        pyramid = model.roi_maps(feats)
-    rois = sampled.rois.contiguous()
+        maps = model.roi_maps(feats)
+    return maps, sampled.rois.contiguous(), gen
+
+
+def dc5_kernels_on_sampled_rois(model):
+    """The kernel pair against the plain version on the RoIs that a train
+    step of the trained full-width DC5 model samples from the step's own
+    batch (`demo_batch`: 4 gt boxes an image, so the positives crowd around
+    them and many RoIs add into the same pixels): forward, and backward on a
+    seeded cotangent, which is then timed beside the plain version's.
+    Returns the backward's entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, rois, gen = sample_step_rois(model, demo_batch(), 3)
+    log(f'train: {tuple(rois.shape[:2])} sampled RoIs on the '
+        f'{tuple(feats.shape)} map')
+    got = dc5_fwd(feats, rois)
+    _check(FWD_DC5, got, roi_align.batched_roi_align_plain(
+        feats, rois, 1 / 16, flatten=True), TOL_F32, 'on sampled RoIs')
+    grad = torch.randn(got.shape, generator=gen, device='cuda')
+    worst = _check(BWD_DC5_STEP, dc5_bwd(grad, rois, tuple(feats.shape)),
+                   plain_backward(feats, rois, grad, True), TOL_F32,
+                   'on sampled RoIs')
+    return time_dc5_backward(BWD_DC5_STEP, feats, rois, grad, worst)
+
+
+def fpn_kernels_on_sampled_rois(model):
+    """The kernel pair against the plain version on the RoIs that a train
+    step of the trained full-width FPN model samples from
+    `fpn_level_batch`, whose gt boxes reach every level: forward, and
+    backward on a seeded cotangent, then timed. Fails if a level gets no
+    RoI. Returns the backward's entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pyramid, rois, gen = sample_step_rois(model, fpn_level_batch(), 3)
     levels = roi_align.roi_levels(rois, 4)
     log(f'fpn train: {tuple(rois.shape[:2])} sampled RoIs, per level P2..P5 '
         f'{_level_counts(levels)}')
-    got = roi_align.roi_align_fpn_cuda(pyramid, rois, levels, flatten=True)
-    _check('roi_align_fpn_fwd', got, roi_align.batched_roi_align_fpn_plain(
+    got = fpn_fwd(pyramid, rois, levels)
+    _check(FWD_FPN, got, roi_align.batched_roi_align_fpn_plain(
         pyramid, rois, flatten=True), TOL_F32, 'on sampled RoIs')
     grad = torch.randn(got.shape, generator=gen, device='cuda')
-    got = roi_align.roi_align_fpn_bwd_cuda(
-        grad, rois, levels, [tuple(p.shape) for p in pyramid], flatten=True)
+    got = fpn_bwd(grad, rois, levels, [tuple(p.shape) for p in pyramid])
     ref = plain_fpn_backward(pyramid, rois, grad, 7, True)
-    for lvl, (gg, rr) in enumerate(zip(got, ref)):
-        _check('roi_align_fpn_bwd', gg, rr, TOL_F32,
-               f'on sampled RoIs P{lvl + 2}')
+    worst = max(_check(BWD_FPN_STEP, gg, rr, TOL_F32,
+                       f'on sampled RoIs P{lvl + 2}')
+                for lvl, (gg, rr) in enumerate(zip(got, ref)))
+    return time_fpn_backward(BWD_FPN_STEP, pyramid, rois, grad, worst)
 
 
 def _fpn_tiny_cfg():
@@ -924,16 +999,16 @@ def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
 
 def phase_fpn_reference():
     """The tiny FPN detector (128x192 canvas, 32 proposals): card vs CPU,
-    inference and one train step, launching both FPN kernels."""
-    fwd, bwd = (roi_align.roi_align_fpn_cuda.launches,
-                roi_align.roi_align_fpn_bwd_cuda.launches)
+    inference and one train step, launching the kernel pair."""
+    fwd, bwd = (roi_align.roi_align_pyramid_cuda.launches,
+                roi_align.roi_align_pyramid_bwd_cuda.launches)
     label = 'tiny FPN (R18, 64-channel neck)'
     phase_reference(_fpn_tiny_cfg(), label, (100, 150), FPN_TINY_SEED)
     anchors = 3 * sum(-(-128 // s) * -(-192 // s) for s in (4, 8, 16, 32, 64))
     phase_reference_train(_fpn_tiny_cfg(), label, (128, 192), anchors, 32,
                           FPN_TINY_SEED)
-    if roi_align.roi_align_fpn_cuda.launches - fwd != 2 or \
-            roi_align.roi_align_fpn_bwd_cuda.launches - bwd != 1:
+    if roi_align.roi_align_pyramid_cuda.launches - fwd != 2 or \
+            roi_align.roi_align_pyramid_bwd_cuda.launches - bwd != 1:
         raise RuntimeError('tiny FPN on the card did not run its kernels')
 
 

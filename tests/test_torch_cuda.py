@@ -15,6 +15,9 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.op
 
 from .torch_port_utils import edge_case_rois
 
+ONE = (1 / 16,)                    # the single-level path: stride 16
+SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
+
 
 @pytest.fixture
 def cuda():
@@ -35,17 +38,18 @@ def _data(device, dtype, b=2, h=9, w=13, c=40, n=30, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize('c', [40, 37])     # vectorized and scalar paths
+# vectorised, scalar, and two f32 vectors a thread (C / 8 >= 64)
+@pytest.mark.parametrize('c', [40, 37, 512])
 @pytest.mark.parametrize('flatten', [False, True])
 @pytest.mark.parametrize('out_size,sr,aligned', [(7, 2, True), (5, 3, True),
                                                  (7, 2, False)])
 def test_roi_align_kernel_matches_plain(cuda, dtype, tol, c, flatten,
                                         out_size, sr, aligned):
     feats, rois = _data(cuda, dtype, c=c)
-    before = ra.batched_roi_align.launches
+    before = ra.roi_align_pyramid_cuda.launches
     got = ra.batched_roi_align(feats, rois, 1 / 16, out_size, sr, aligned,
                                flatten)
-    assert ra.batched_roi_align.launches == before + 1
+    assert ra.roi_align_pyramid_cuda.launches == before + 1
     ref = ra.batched_roi_align_plain(feats, rois, 1 / 16, out_size, sr,
                                      aligned, flatten)
     torch.cuda.synchronize()
@@ -61,16 +65,17 @@ def test_roi_align_kernel_refuses_what_it_does_not_take(cuda):
     feats, rois = _data(cuda, torch.float32)
     out = ra.batched_roi_align(feats.clone().requires_grad_(), rois, 1 / 16)
     assert out.requires_grad
-    shape = tuple(feats.shape)
+    shapes = [tuple(feats.shape)]
     g = torch.zeros(out.shape, device=cuda)
     with pytest.raises(ValueError):
-        ra.roi_align_bwd_cuda(g[:, :, :6], rois, shape, 1 / 16)
+        ra.roi_align_pyramid_bwd_cuda(g[:, :, :6], rois, None, shapes, ONE)
     with pytest.raises(TypeError):
-        ra.roi_align_bwd_cuda(g.half(), rois, shape, 1 / 16)
+        ra.roi_align_pyramid_bwd_cuda(g.half(), rois, None, shapes, ONE)
     with pytest.raises(ValueError):
-        ra.roi_align_bwd_cuda(g.transpose(2, 3), rois, shape, 1 / 16)
+        ra.roi_align_pyramid_bwd_cuda(g.transpose(2, 3), rois, None, shapes,
+                                      ONE)
     with pytest.raises(ValueError):
-        ra.roi_align_bwd_cuda(g, rois.cpu(), shape, 1 / 16)
+        ra.roi_align_pyramid_bwd_cuda(g, rois.cpu(), None, shapes, ONE)
     with pytest.raises(TypeError):
         ra.batched_roi_align(feats.half(), rois, 1 / 16)
     with pytest.raises(ValueError):
@@ -99,7 +104,8 @@ def _plain_grad(feats, rois, cot, out_size, sr, aligned, flatten):
                                                  (7, 2, False)])
 def test_roi_align_bwd_kernel_matches_plain(cuda, dtype, tol, c, flatten,
                                             out_size, sr, aligned):
-    """`roi_align_bwd` against the plain version's autograd. The kernel
+    """The backward kernel at one level against the plain version's
+    autograd. The kernel
     adds its taps with f32 atomics in an order that changes from run to
     run: f32 within 1e-5 of the gradient's scale; bf16 (the plain version
     rounds weights and intermediates to bf16) within 2e-2."""
@@ -108,10 +114,11 @@ def test_roi_align_bwd_kernel_matches_plain(cuda, dtype, tol, c, flatten,
         (2, rois.shape[1], out_size, out_size, c)
     gen = torch.Generator(device=cuda).manual_seed(1)
     cot = torch.randn(shape, generator=gen, device=cuda).to(dtype)
-    before = ra.roi_align_bwd_cuda.launches
-    got = ra.roi_align_bwd_cuda(cot, rois, tuple(feats.shape), 1 / 16,
-                                out_size, sr, aligned, flatten)
-    assert ra.roi_align_bwd_cuda.launches == before + 1
+    before = ra.roi_align_pyramid_bwd_cuda.launches
+    (got,) = ra.roi_align_pyramid_bwd_cuda(cot, rois, None, [feats.shape],
+                                           ONE, out_size, sr, aligned,
+                                           flatten)
+    assert ra.roi_align_pyramid_bwd_cuda.launches == before + 1
     ref = _plain_grad(feats, rois, cot, out_size, sr, aligned, flatten)
     torch.cuda.synchronize()
     assert got.shape == feats.shape and got.dtype == dtype
@@ -122,27 +129,28 @@ def test_roi_align_bwd_kernel_matches_plain(cuda, dtype, tol, c, flatten,
 @pytest.mark.cuda
 def test_roi_align_function_under_autograd(cuda):
     """`batched_roi_align` on a CUDA tensor that needs a gradient goes
-    through `RoIAlignFunction`: one forward and one backward launch, the
-    plain version's gradient within 1e-5 of scale, none for the rois; under
-    `no_grad` it is the plain forward launch."""
+    through `RoIAlignPyramidFunction`: one forward and one backward launch,
+    the plain version's gradient within 1e-5 of scale, none for the rois;
+    under `no_grad` it is the plain forward launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     feats, rois = _data(cuda, torch.float32)
     f = feats.clone().requires_grad_()
-    fwd, bwd = ra.batched_roi_align.launches, ra.roi_align_bwd_cuda.launches
+    fwd = ra.roi_align_pyramid_cuda.launches
+    bwd = ra.roi_align_pyramid_bwd_cuda.launches
     out = ra.batched_roi_align(f, rois.requires_grad_(), 1 / 16,
                                flatten=True)
     cot = torch.randn_like(out)
     (out * cot).sum().backward()
-    assert ra.batched_roi_align.launches == fwd + 1
-    assert ra.roi_align_bwd_cuda.launches == bwd + 1
+    assert ra.roi_align_pyramid_cuda.launches == fwd + 1
+    assert ra.roi_align_pyramid_bwd_cuda.launches == bwd + 1
     assert rois.grad is None
     ref = _plain_grad(feats, rois.detach(), cot, 7, 2, True, True)
     scale = max(1.0, float(ref.abs().max()))
     assert float((f.grad - ref).abs().max()) <= 1e-5 * scale
     with torch.no_grad():
         ra.batched_roi_align(f, rois, 1 / 16)
-    assert ra.batched_roi_align.launches == fwd + 2
-    assert ra.roi_align_bwd_cuda.launches == bwd + 1
+    assert ra.roi_align_pyramid_cuda.launches == fwd + 2
+    assert ra.roi_align_pyramid_bwd_cuda.launches == bwd + 1
 
 
 def _pyramid(device, dtype, b=2, c=40, seed=0, n=36):
@@ -170,37 +178,38 @@ def _pyramid(device, dtype, b=2, c=40, seed=0, n=36):
 @pytest.mark.parametrize('out_size', [7, 14])
 def test_roi_align_fpn_kernels_match_plain(cuda, dtype, tol, c, flatten,
                                            out_size):
-    """`roi_align_fpn_fwd` against the plain multi-level version, and
-    `roi_align_fpn_bwd` against its autograd (f32 atomics in an order that
-    changes from run to run): f32 within 1e-5 of scale, bf16 within 2e-2;
-    one launch each."""
+    """The kernel pair on four levels: the forward against the plain
+    multi-level version, the backward against its autograd (f32 atomics in
+    an order that changes from run to run): f32 within 1e-5 of scale, bf16
+    within 2e-2; one launch each."""
     feats, rois = _pyramid(cuda, dtype, c=c)
     levels = ra.roi_levels(rois, 4)
-    before = ra.roi_align_fpn_cuda.launches
-    got = ra.roi_align_fpn_cuda(feats, rois, levels, out_size=out_size,
-                                flatten=flatten)
-    assert ra.roi_align_fpn_cuda.launches == before + 1
+    before = ra.roi_align_pyramid_cuda.launches
+    got = ra.roi_align_pyramid_cuda(feats, rois, levels, SCALES,
+                                    out_size=out_size, flatten=flatten)
+    assert ra.roi_align_pyramid_cuda.launches == before + 1
     fs = [f.detach().clone().requires_grad_() for f in feats]
     ref = ra.batched_roi_align_fpn_plain(fs, rois, out_size=out_size,
                                          flatten=flatten)
-    assert got.shape == ref.shape and got.dtype == dtype
-    scale = max(1.0, float(ref.detach().float().abs().max()))
-    assert float((got.float() - ref.detach().float()).abs().max()) <= \
-        tol * scale
+    _close(got, ref.detach(), tol)
 
     gen = torch.Generator(device=cuda).manual_seed(1)
     cot = torch.randn(ref.shape, generator=gen, device=cuda).to(dtype)
-    before = ra.roi_align_fpn_bwd_cuda.launches
-    grads = ra.roi_align_fpn_bwd_cuda(cot, rois, levels,
-                                      [f.shape for f in feats],
-                                      out_size=out_size, flatten=flatten)
-    assert ra.roi_align_fpn_bwd_cuda.launches == before + 1
+    before = ra.roi_align_pyramid_bwd_cuda.launches
+    grads = ra.roi_align_pyramid_bwd_cuda(cot, rois, levels,
+                                          [f.shape for f in feats], SCALES,
+                                          out_size=out_size, flatten=flatten)
+    assert ra.roi_align_pyramid_bwd_cuda.launches == before + 1
     refs = torch.autograd.grad(ref, fs, cot)
-    torch.cuda.synchronize()
     for g, r in zip(grads, refs):
-        assert g.shape == r.shape and g.dtype == dtype
-        scale = max(1.0, float(r.float().abs().max()))
-        assert float((g.float() - r.float()).abs().max()) <= tol * scale
+        _close(g, r, tol)
+
+
+def _close(got, ref, tol):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((got.float() - ref.float()).abs().max()) <= tol * scale
 
 
 @pytest.mark.cuda
@@ -212,14 +221,14 @@ def test_roi_align_fpn_function_under_autograd(cuda):
     feats, rois = _pyramid(cuda, torch.float32)
     fs = [f.clone().requires_grad_() for f in feats]
     p6 = torch.zeros(2, 3, 4, 40, device=cuda, requires_grad=True)
-    fwd = ra.roi_align_fpn_cuda.launches
-    bwd = ra.roi_align_fpn_bwd_cuda.launches
+    fwd = ra.roi_align_pyramid_cuda.launches
+    bwd = ra.roi_align_pyramid_bwd_cuda.launches
     out = ra.batched_roi_align_fpn([*fs, p6], rois.requires_grad_(),
                                    flatten=True)
     cot = torch.randn_like(out)
     (out * cot).sum().backward()
-    assert ra.roi_align_fpn_cuda.launches == fwd + 1
-    assert ra.roi_align_fpn_bwd_cuda.launches == bwd + 1
+    assert ra.roi_align_pyramid_cuda.launches == fwd + 1
+    assert ra.roi_align_pyramid_bwd_cuda.launches == bwd + 1
     assert rois.grad is None and p6.grad is None
     plain = [f.detach().clone().requires_grad_() for f in feats]
     refs = torch.autograd.grad(ra.batched_roi_align_fpn_plain(
@@ -229,8 +238,8 @@ def test_roi_align_fpn_function_under_autograd(cuda):
         assert float((f.grad - r).abs().max()) <= 1e-5 * scale
     with torch.no_grad():
         ra.batched_roi_align_fpn(fs, rois)
-    assert ra.roi_align_fpn_cuda.launches == fwd + 2
-    assert ra.roi_align_fpn_bwd_cuda.launches == bwd + 1
+    assert ra.roi_align_pyramid_cuda.launches == fwd + 2
+    assert ra.roi_align_pyramid_bwd_cuda.launches == bwd + 1
 
 
 @pytest.mark.cuda
@@ -239,25 +248,108 @@ def test_roi_align_fpn_kernels_refuse_what_they_do_not_take(cuda):
     levels = ra.roi_levels(rois, 4)
     shapes = [f.shape for f in feats]
     g = torch.zeros(2, rois.shape[1], 7, 7, 40, device=cuda)
+    fwd, bwd = ra.roi_align_pyramid_cuda, ra.roi_align_pyramid_bwd_cuda
     with pytest.raises(ValueError):               # a CPU tensor
-        ra.roi_align_fpn_cuda([feats[0].cpu(), *feats[1:]], rois, levels)
+        fwd([feats[0].cpu(), *feats[1:]], rois, levels, SCALES)
     with pytest.raises(ValueError):
-        ra.roi_align_fpn_cuda(feats, rois.cpu(), levels)
+        fwd([*feats[:3], feats[3].cpu()], rois, levels, SCALES)
     with pytest.raises(ValueError):
-        ra.roi_align_fpn_bwd_cuda(g.cpu(), rois, levels, shapes)
+        fwd(feats, rois.cpu(), levels, SCALES)
+    with pytest.raises(ValueError):
+        bwd(g.cpu(), rois, levels, shapes, SCALES)
     with pytest.raises(TypeError):                # an unsupported dtype
-        ra.roi_align_fpn_cuda([f.half() for f in feats], rois, levels)
+        fwd([f.half() for f in feats], rois, levels, SCALES)
     with pytest.raises(TypeError):
-        ra.roi_align_fpn_bwd_cuda(g.half(), rois, levels, shapes)
+        bwd(g.half(), rois, levels, shapes, SCALES)
     with pytest.raises(ValueError):               # o * sr > 64
-        ra.roi_align_fpn_cuda(feats, rois, levels, out_size=33)
+        fwd(feats, rois, levels, SCALES, out_size=33)
     with pytest.raises(ValueError):
-        ra.roi_align_fpn_bwd_cuda(g, rois, levels, shapes, out_size=7,
-                                  sampling_ratio=10)
+        bwd(g, rois, levels, shapes, SCALES, out_size=7, sampling_ratio=10)
     with pytest.raises(ValueError):               # levels not int32
-        ra.roi_align_fpn_cuda(feats, rois, levels.long())
+        fwd(feats, rois, levels.long(), SCALES)
+    with pytest.raises(ValueError):               # several levels, no array
+        fwd(feats, rois, None, SCALES)
     with pytest.raises(ValueError):               # not NHWC-contiguous
-        ra.roi_align_fpn_cuda([f.transpose(1, 2) for f in feats], rois,
-                              levels)
-    with pytest.raises(ValueError):               # strides and levels
-        ra.roi_align_fpn_cuda(feats[:3], rois, levels)
+        fwd([f.transpose(1, 2) for f in feats], rois, levels, SCALES)
+    with pytest.raises(ValueError):               # scales and levels
+        fwd(feats[:3], rois, levels, SCALES)
+    with pytest.raises(ValueError):               # more than four levels
+        fwd([*feats, feats[3]], rois, levels, (*SCALES, 1 / 64))
+
+
+def _both_ways(feats, rois, scale, out_size, sr, aligned=True, flatten=True,
+               seed=1):
+    """The kernel pair at one level against the plain version and its
+    autograd, on the same seeded cotangent. Returns (forward error,
+    backward error), each over the reference's scale."""
+    f = feats.detach().clone().requires_grad_()
+    ref = ra.batched_roi_align_plain(f, rois, scale, out_size, sr, aligned,
+                                     flatten)
+    got = ra.roi_align_pyramid_cuda([feats], rois, None, (scale,), out_size,
+                                    sr, aligned, flatten)
+    gen = torch.Generator(device=feats.device).manual_seed(seed)
+    cot = torch.randn(ref.shape, generator=gen, device=feats.device).to(
+        feats.dtype)
+    (ref_g,) = torch.autograd.grad(ref, f, cot)
+    (got_g,) = ra.roi_align_pyramid_bwd_cuda(cot, rois, None, [feats.shape],
+                                             (scale,), out_size, sr,
+                                             aligned, flatten)
+    torch.cuda.synchronize()
+    errs = []
+    for a, b in ((got, ref.detach()), (got_g, ref_g)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.isfinite(a).all()
+        scale_ = max(1.0, float(b.float().abs().max()))
+        errs.append(float((a.float() - b.float()).abs().max()) / scale_)
+    return errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('out_size,sr', [(14, 4), (32, 2), (64, 1)])
+def test_roi_align_kernels_on_a_footprint_beyond_shared_memory(
+        cuda, out_size, sr):
+    """RoIs over most of a 120x120x64 f32 map: a footprint of up to 122 x
+    122 pixels x 256 bytes (3.8 MB), far beyond a block's 227 KB of shared
+    memory, at o * sr = 56..64; the kernels stream it a row at a time."""
+    rs = np.random.RandomState(2)
+    feats = torch.from_numpy(rs.standard_normal((2, 120, 120, 64)).astype(
+        np.float32)).to(cuda)
+    rois = torch.tensor([[[-8, -8, 1930, 1930], [16, 40, 1900, 1800],
+                          [0, 0, 1920, 1920], [500, 3, 1500, 1913]]] * 2,
+                        dtype=torch.float32, device=cuda)
+    assert max(_both_ways(feats, rois, 1 / 16, out_size, sr)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('flatten', [False, True])
+def test_roi_align_kernels_one_channel_at_o28(cuda, dtype, tol, flatten):
+    """The mask slice's targets: C = 1 (the scalar path, one channel a
+    block) at o = 28 on scale-1 rasters, boxes inside, across and beyond
+    the raster."""
+    rs = np.random.RandomState(3)
+    feats = torch.from_numpy((rs.uniform(0, 1, (2, 56, 80, 1)) > 0.5).astype(
+        np.float32)).to(cuda, dtype)
+    rois = torch.from_numpy(edge_case_rois(rs, 2, 24, 56, 80, stride=1)).to(
+        cuda)
+    errs = _both_ways(feats, rois, 1.0, 28, 2, flatten=flatten)
+    assert max(errs) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_roi_align_bwd_kernel_under_contention(cuda, dtype, tol):
+    """512 RoIs an image stacked on the same pixels, as a train step's
+    positives crowd around a few gt boxes: jittered copies of 4 boxes, from
+    under one feature pixel to 12 pixels wide, on a 32x64x256 map. Every
+    pixel of a box takes ~128 RoIs' atomics."""
+    rs = np.random.RandomState(4)
+    feats = torch.from_numpy(rs.standard_normal((2, 32, 64, 256)).astype(
+        np.float32)).to(cuda, dtype)
+    boxes = np.array([[100, 100, 108, 106], [300, 200, 364, 260],
+                      [500, 80, 692, 260], [800, 300, 812, 310]], np.float32)
+    rois = boxes[rs.randint(0, 4, (2, 512))] +         rs.uniform(-4, 4, (2, 512, 4)).astype(np.float32)
+    errs = _both_ways(feats, torch.from_numpy(rois).to(cuda), 1 / 16, 7, 2)
+    assert max(errs) <= tol

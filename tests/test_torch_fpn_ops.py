@@ -180,14 +180,14 @@ def test_plain_fpn_gradient_matches_jax_grad():
 def test_cpu_dispatch_takes_plain_and_counts_nothing():
     rs = np.random.RandomState(5)
     feats, rois = _pyramid(rs, levels=4), _fpn_rois(rs, n=12)
-    before = (tra.roi_align_fpn_cuda.launches,
-              tra.roi_align_fpn_bwd_cuda.launches)
+    before = (tra.roi_align_pyramid_cuda.launches,
+              tra.roi_align_pyramid_bwd_cuda.launches)
     tf = [_t(f).requires_grad_() for f in feats]
     out = tra.batched_roi_align_fpn(tf, _t(rois))
     ref = tra.batched_roi_align_fpn_plain([_t(f) for f in feats], _t(rois))
     assert torch.equal(out.detach(), ref)
     out.sum().backward()
-    assert (tra.roi_align_fpn_cuda.launches,
-            tra.roi_align_fpn_bwd_cuda.launches) == before
+    assert (tra.roi_align_pyramid_cuda.launches,
+            tra.roi_align_pyramid_bwd_cuda.launches) == before
     with pytest.raises(ValueError, match='strides'):
         tra.batched_roi_align_fpn(tf[:3], _t(rois))

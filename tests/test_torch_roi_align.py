@@ -5,6 +5,8 @@ weights and sum only the (at most 2 * sr) nonzero taps per axis, so only
 summation order differs."""
 
 import importlib
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -107,16 +109,16 @@ def test_plain_backward_matches_jax_grad(flatten):
 
 def test_cpu_dispatch_takes_plain_and_counts_nothing():
     feats, rois = _data(seed=3)
-    before = tra.batched_roi_align.launches
-    before_bwd = tra.roi_align_bwd_cuda.launches
+    before = tra.roi_align_pyramid_cuda.launches
+    before_bwd = tra.roi_align_pyramid_bwd_cuda.launches
     ft = torch.from_numpy(feats).requires_grad_()
     out = tra.batched_roi_align(ft, torch.from_numpy(rois), 1 / 16.)
     ref = tra.batched_roi_align_plain(torch.from_numpy(feats),
                                       torch.from_numpy(rois), 1 / 16.)
     assert torch.equal(out.detach(), ref)
     out.sum().backward()
-    assert tra.batched_roi_align.launches == before
-    assert tra.roi_align_bwd_cuda.launches == before_bwd
+    assert tra.roi_align_pyramid_cuda.launches == before
+    assert tra.roi_align_pyramid_bwd_cuda.launches == before_bwd
 
 
 def test_axis_weights_rows_sum_to_valid_fraction():
@@ -130,3 +132,65 @@ def test_axis_weights_rows_sum_to_valid_fraction():
     assert torch.allclose(sums[0], torch.ones(7))
     assert torch.equal(sums[1], torch.zeros(7))
     assert torch.allclose(sums[2], torch.ones(7))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / 'chip_smoke.py'
+    spec = importlib.util.spec_from_file_location('chip_smoke', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _brute_force_taps(rois, h, w, out_size, sr, scale):
+    """Enumerate every (bin, sample, tap) of every RoI in float32: the
+    pixels touched per image, the nonzero products, and the distinct
+    (RoI, pixel) pairs."""
+    f32 = np.float32
+
+    def taps(lo, size, p, length):
+        for s in range(sr):
+            pos = f32(lo + f32(f32(p) + f32(f32(s) + f32(0.5)) / f32(sr)) *
+                      size)
+            valid = -1 <= pos <= length
+            pc = min(max(pos, f32(0)), f32(length - 1))
+            i0 = int(np.floor(pc))
+            frac = f32(pc - f32(i0))
+            yield i0, f32(1) - frac if valid else f32(0)
+            yield min(i0 + 1, length - 1), frac if valid else f32(0)
+
+    touched = products = pairs = 0
+    for image in rois:
+        image_pixels = set()
+        for roi in image:
+            sc = roi.astype(f32) * f32(scale)
+            lo_x, lo_y = f32(sc[0] - f32(0.5)), f32(sc[1] - f32(0.5))
+            bw = f32(f32(sc[2] - sc[0]) / f32(out_size))
+            bh = f32(f32(sc[3] - sc[1]) / f32(out_size))
+            pixels = set()
+            for py in range(out_size):
+                for px in range(out_size):
+                    for iy, wy in taps(lo_y, bh, py, h):
+                        for ix, wx in taps(lo_x, bw, px, w):
+                            if wy * wx != 0:
+                                products += 1
+                                pixels.add((iy, ix))
+            pairs += len(pixels)
+            image_pixels |= pixels
+        touched += len(image_pixels)
+    return touched, products, pairs
+
+
+@pytest.mark.parametrize('out_size,sr', [(7, 2), (5, 3)])
+def test_chip_smoke_work_model_matches_brute_force(out_size, sr):
+    """`chip_smoke.roi_align_taps`, the work model behind the kernels'
+    bounds and the backward's atomic count, against an enumeration of every
+    tap, on edge-case RoIs (border-crossing, outside, sub-pixel and zero
+    boxes)."""
+    rs = np.random.RandomState(6)
+    rois = edge_case_rois(rs, 2, 12, 6, 9)
+    got = _chip_smoke().roi_align_taps(list(torch.from_numpy(rois)), 6, 9,
+                                       out_size, sr)
+    want = _brute_force_taps(rois, 6, 9, out_size, sr, 1 / 16)
+    assert got == want
+    assert 0 < want[2] < want[1]        # shared pixels merge in the pairs

@@ -1,11 +1,10 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each `csrc/*.cu` file has a plain C interface. It is compiled with `nvcc` for
-Hopper (`sm_90a`) at first use into `build/kernels/` at the root of the
-checkout, under a name keyed by a hash of the source and of the shared
-headers (`csrc/*.cuh`), and bound with
-`ctypes`. Nothing is compiled when a module is imported. A failed build
-raises; there is no fallback.
+Each `csrc/*.cu` file has a plain C interface and includes no file of its
+own. It is compiled with `nvcc` for Hopper (`sm_90a`) at first use into
+`build/kernels/` at the root of the checkout, under a name keyed by a hash
+of the source, and bound with `ctypes`. Nothing is compiled when a module is
+imported. A failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -42,10 +41,7 @@ def build(source: str) -> Tuple[Path, float, str]:
     """Compile `csrc/<source>` unless a library for its current content is
     already built. Returns (library path, build seconds, compiler log)."""
     src = CSRC / source
-    h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob('*.cuh')):
-        h.update(header.read_bytes())
-    digest = h.hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     lib = BUILD_DIR / f'{src.stem}_{digest}.so'
     if lib.exists():
         return lib, 0.0, ''

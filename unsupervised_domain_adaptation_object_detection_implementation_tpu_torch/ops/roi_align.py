@@ -13,22 +13,18 @@ JAX package.
   written in torch: per-RoI axis weight matrices (R, o, W) and (R, o, H),
   then two products. It is what the CPU runs, and the yardstick the kernel
   is held against on the card.
-- :func:`batched_roi_align` is the entry point. For tensors on the CPU it
-  runs the plain version, whose autograd is the plain backward. For CUDA
-  tensors it launches the hand-written kernels of `csrc/roi_align.cu` (or
-  raises): the forward `roi_align_fwd`, counted in
-  `batched_roi_align.launches`, and, when feats need a gradient, the
-  backward `roi_align_bwd` through :class:`RoIAlignFunction`, counted in
-  `roi_align_bwd_cuda.launches`. rois get no gradient, as in the JAX
-  package.
-
-- :func:`batched_roi_align_fpn` is the multi-level entry point: each RoI
-  is pooled from the level `roi_levels` gives it. CPU tensors take
-  :func:`batched_roi_align_fpn_plain` (the JAX package's masked separable
-  form); CUDA tensors launch the kernels of `csrc/roi_align_fpn.cu`,
-  `roi_align_fpn_fwd` and, through :class:`RoIAlignFPNFunction`,
-  `roi_align_fpn_bwd` (counted in `roi_align_fpn_cuda.launches` and
-  `roi_align_fpn_bwd_cuda.launches`), or raise.
+- :func:`batched_roi_align` is the single-level entry point and
+  :func:`batched_roi_align_fpn` the multi-level one: each RoI is pooled
+  from the level `roi_levels` gives it. CPU tensors take the plain
+  versions (:func:`batched_roi_align_fpn_plain` is the JAX package's
+  masked separable form) and their autograd. CUDA tensors launch one
+  hand-written kernel pair for both paths (`csrc/roi_align_pyramid.cu`;
+  the single-level path is its one-level case) or raise: the forward
+  `roi_align_pyramid_fwd`, counted in `roi_align_pyramid_cuda.launches`,
+  and, when a map needs a gradient, the backward `roi_align_pyramid_bwd`
+  through :class:`RoIAlignPyramidFunction`, counted in
+  `roi_align_pyramid_bwd_cuda.launches`. rois get no gradient, as in the
+  JAX package.
 
 `flatten=True` returns (B, R, o*o*C) in x-major (xbin, ybin, C) order, the
 order the Shared2FC head's first layer expects (the JAX package chose it
@@ -144,174 +140,6 @@ def batched_roi_align_plain(feats: torch.Tensor, rois: torch.Tensor,
     return out
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_VEC = {torch.float32: 4, torch.bfloat16: 8}
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_lib() -> ctypes.CDLL:
-    lib = cuda_build.load('roi_align.cu')
-    for fn in (lib.roi_align_fwd, lib.roi_align_bwd):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check_kernel_args(x: torch.Tensor, rois: torch.Tensor, batch: int,
-                       out_size: int, sampling_ratio: int) -> None:
-    """Raise on anything the kernels of `csrc/roi_align.cu` do not take; `x`
-    is the forward's feats or the backward's output gradient."""
-    if x.device.type != 'cuda' or rois.device != x.device:
-        raise ValueError(f'tensors must be on one CUDA device, got '
-                         f'{x.device} and rois on {rois.device}')
-    if rois.dim() != 3 or rois.shape[-1] != 4 or rois.shape[0] != batch:
-        raise ValueError(f'expected rois ({batch},R,4), got '
-                         f'{tuple(rois.shape)}')
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f'dtype {x.dtype} not supported (float32, bfloat16)')
-    if rois.dtype != torch.float32:
-        raise TypeError(f'rois must be float32, got {rois.dtype}')
-    if not (x.is_contiguous() and rois.is_contiguous()):
-        raise ValueError('tensors must be contiguous (NHWC feats)')
-    if out_size * sampling_ratio > 64 or out_size < 1 or sampling_ratio < 1:
-        raise ValueError(f'out_size {out_size} x sampling_ratio '
-                         f'{sampling_ratio} outside the kernel (<= 64)')
-
-
-def roi_align_cuda(feats: torch.Tensor, rois: torch.Tensor,
-                   spatial_scale: float, out_size: int = 7,
-                   sampling_ratio: int = 2, aligned: bool = True,
-                   flatten: bool = False) -> torch.Tensor:
-    """Launch the forward kernel `roi_align_fwd` on CUDA tensors; raise on
-    anything it does not take. Records no gradient."""
-    if feats.dim() != 4:
-        raise ValueError(f'expected feats (B,H,W,C), got '
-                         f'{tuple(feats.shape)}')
-    _check_kernel_args(feats, rois, feats.shape[0], out_size, sampling_ratio)
-    b, h, w, c = feats.shape
-    n = rois.shape[1]
-    shape = (b, n, out_size * out_size * c) if flatten else \
-        (b, n, out_size, out_size, c)
-    out = torch.empty(shape, dtype=feats.dtype, device=feats.device)
-    if b * n == 0:
-        return out
-    vec = _VEC[feats.dtype]
-    if c % vec or feats.data_ptr() % 16 or out.data_ptr() % 16:
-        vec = 1
-    lib = _kernel_lib()
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = lib.roi_align_fwd(
-            feats.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c, n,
-            float(spatial_scale), out_size, sampling_ratio, int(aligned),
-            int(flatten), _DTYPE_CODES[feats.dtype], vec, stream)
-    if err != 0:
-        raise RuntimeError(f'roi_align_fwd launch failed: cudaError {err}')
-    batched_roi_align.launches += 1
-    return out
-
-
-def roi_align_bwd_cuda(grad: torch.Tensor, rois: torch.Tensor,
-                       feats_shape: Tuple[int, int, int, int],
-                       spatial_scale: float, out_size: int = 7,
-                       sampling_ratio: int = 2, aligned: bool = True,
-                       flatten: bool = False) -> torch.Tensor:
-    """Launch the backward kernel `roi_align_bwd`: the gradient (B, H, W, C)
-    with respect to feats of the forward's output gradient `grad`, either
-    (B, R, o, o, C) or flat (B, R, o·o·C) x-major, f32 or bf16. Sums in an
-    f32 buffer (zeroed here) and returns it in `grad`'s dtype."""
-    b, h, w, c = feats_shape
-    _check_kernel_args(grad, rois, b, out_size, sampling_ratio)
-    n = rois.shape[1]
-    shape = (b, n, out_size * out_size * c) if flatten else \
-        (b, n, out_size, out_size, c)
-    if tuple(grad.shape) != shape:
-        raise ValueError(f'grad shape {tuple(grad.shape)}, expected {shape}')
-    grad_feats = torch.zeros((b, h, w, c), dtype=torch.float32,
-                             device=grad.device)
-    if b * n == 0:
-        return grad_feats.to(grad.dtype)
-    vec = _VEC[grad.dtype]
-    if c % vec or grad.data_ptr() % 16:
-        vec = 1
-    lib = _kernel_lib()
-    with torch.cuda.device(grad.device):
-        stream = torch.cuda.current_stream(grad.device).cuda_stream
-        err = lib.roi_align_bwd(
-            grad.data_ptr(), rois.data_ptr(), grad_feats.data_ptr(), b, h, w,
-            c, n, float(spatial_scale), out_size, sampling_ratio,
-            int(aligned), int(flatten), _DTYPE_CODES[grad.dtype], vec, stream)
-    if err != 0:
-        raise RuntimeError(f'roi_align_bwd launch failed: cudaError {err}')
-    roi_align_bwd_cuda.launches += 1
-    return grad_feats if grad.dtype == torch.float32 else \
-        grad_feats.to(grad.dtype)
-
-
-roi_align_bwd_cuda.launches = 0
-
-
-class RoIAlignFunction(torch.autograd.Function):
-    """RoIAlign on CUDA with a gradient: the forward launches `roi_align_fwd`
-    and the backward `roi_align_bwd`; rois get no gradient."""
-
-    @staticmethod
-    def forward(ctx, feats, rois, spatial_scale, out_size, sampling_ratio,
-                aligned, flatten):
-        ctx.save_for_backward(rois)
-        ctx.feats_shape = tuple(feats.shape)
-        ctx.args = (spatial_scale, out_size, sampling_ratio, aligned, flatten)
-        return roi_align_cuda(feats, rois, spatial_scale, out_size,
-                              sampling_ratio, aligned, flatten)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (rois,) = ctx.saved_tensors
-        grad_feats = None
-        if ctx.needs_input_grad[0]:
-            grad_feats = roi_align_bwd_cuda(grad.contiguous(), rois,
-                                            ctx.feats_shape, *ctx.args)
-        return grad_feats, None, None, None, None, None, None
-
-
-def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor,
-                      spatial_scale: float, out_size: int = 7,
-                      sampling_ratio: int = 2, aligned: bool = True,
-                      flatten: bool = False) -> torch.Tensor:
-    """Batched RoIAlign: (B,H,W,C) x (B,R,4) → (B,R,o,o,C), or (B,R,o·o·C)
-    in x-major order with `flatten=True`.
-
-    CPU tensors take the plain version (and its autograd). CUDA tensors
-    launch the forward kernel (counted in `batched_roi_align.launches`) or
-    raise; when grad is recorded and feats require it, through
-    :class:`RoIAlignFunction`, whose backward launches `roi_align_bwd`.
-    """
-    rois = rois.detach()
-    if feats.device.type == 'cpu':
-        return batched_roi_align_plain(feats, rois, spatial_scale, out_size,
-                                       sampling_ratio, aligned, flatten)
-    if feats.device.type == 'cuda':
-        if torch.is_grad_enabled() and feats.requires_grad:
-            return RoIAlignFunction.apply(feats, rois, spatial_scale,
-                                          out_size, sampling_ratio, aligned,
-                                          flatten)
-        return roi_align_cuda(feats, rois, spatial_scale, out_size,
-                              sampling_ratio, aligned, flatten)
-    raise ValueError(f'no RoIAlign for device {feats.device}')
-
-
-batched_roi_align.launches = 0
-
-
-# ---- multi-level (FPN) RoIAlign -------------------------------------------
-
-_MAX_LEVELS = 4       # kMaxLevels of csrc/roi_align_fpn.cu
-
-
 def roi_levels(rois: torch.Tensor, num_levels: int,
                finest_scale: int = 56) -> torch.Tensor:
     """The FPN level of each RoI (B, R, 4) → (B, R) int32: clamp(floor(
@@ -345,38 +173,59 @@ def batched_roi_align_fpn_plain(feats: Sequence[torch.Tensor],
     return total
 
 
+# ---- the CUDA kernels (csrc/roi_align_pyramid.cu) --------------------------
+
+_MAX_LEVELS = 4       # kMaxLevels of csrc/roi_align_pyramid.cu
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}
+
+
 @functools.lru_cache(maxsize=None)
-def _fpn_kernel_lib() -> ctypes.CDLL:
-    lib = cuda_build.load('roi_align_fpn.cu')
-    ints = [ctypes.c_int] * 6
-    for fn in (lib.roi_align_fpn_fwd, lib.roi_align_fpn_bwd):
+def _pyramid_lib() -> ctypes.CDLL:
+    lib = cuda_build.load('roi_align_pyramid.cu')
+    for fn in (lib.roi_align_pyramid_fwd, lib.roi_align_pyramid_bwd):
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_int),
                        ctypes.POINTER(ctypes.c_int),
                        ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       *ints, ctypes.c_void_p]
+                       *[ctypes.c_int] * 9, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_fpn_args(x: torch.Tensor, shapes, rois: torch.Tensor,
-                    levels: torch.Tensor, strides, out_size: int,
-                    sampling_ratio: int) -> None:
-    """Raise on anything the kernels of `csrc/roi_align_fpn.cu` do not
-    take: `x` is the forward's first level or the backward's gradient,
-    `shapes` the levels' (B, H, W, C)."""
+def _check_args(x: torch.Tensor, shapes, rois: torch.Tensor,
+                levels: Optional[torch.Tensor], scales, out_size: int,
+                sampling_ratio: int) -> None:
+    """Raise on anything the kernels do not take: `x` is the forward's first
+    level or the backward's output gradient, `shapes` the levels' (B, H, W,
+    C), `levels` None for one level."""
     b, c = shapes[0][0], shapes[0][3]
-    _check_kernel_args(x, rois, b, out_size, sampling_ratio)
-    if not 1 <= len(shapes) <= _MAX_LEVELS or len(strides) != len(shapes):
-        raise ValueError(f'{len(shapes)} levels for {len(strides)} strides '
+    if x.device.type != 'cuda' or rois.device != x.device:
+        raise ValueError(f'tensors must be on one CUDA device, got '
+                         f'{x.device} and rois on {rois.device}')
+    if rois.dim() != 3 or rois.shape[-1] != 4 or rois.shape[0] != b:
+        raise ValueError(f'expected rois ({b},R,4), got {tuple(rois.shape)}')
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f'dtype {x.dtype} not supported (float32, bfloat16)')
+    if rois.dtype != torch.float32:
+        raise TypeError(f'rois must be float32, got {rois.dtype}')
+    if not (x.is_contiguous() and rois.is_contiguous()):
+        raise ValueError('tensors must be contiguous (NHWC feats)')
+    if out_size * sampling_ratio > 64 or out_size < 1 or sampling_ratio < 1:
+        raise ValueError(f'out_size {out_size} x sampling_ratio '
+                         f'{sampling_ratio} outside the kernel (<= 64)')
+    if not 1 <= len(shapes) <= _MAX_LEVELS or len(scales) != len(shapes):
+        raise ValueError(f'{len(shapes)} levels for {len(scales)} strides '
                          f'(1..{_MAX_LEVELS} levels)')
     for s in shapes:
         if len(s) != 4 or s[0] != b or s[3] != c or min(s) < 1:
             raise ValueError(f'level shapes {shapes} are not (B, H_l, W_l, '
                              'C) with one B and C')
-    if levels.dtype != torch.int32 or levels.device != x.device or \
+    if levels is None:
+        if len(shapes) > 1:
+            raise ValueError('levels are needed for more than one level')
+    elif levels.dtype != torch.int32 or levels.device != x.device or \
             tuple(levels.shape) != tuple(rois.shape[:2]) or \
             not levels.is_contiguous():
         raise ValueError(f'levels must be contiguous int32 '
@@ -385,84 +234,86 @@ def _check_fpn_args(x: torch.Tensor, shapes, rois: torch.Tensor,
                          f'{levels.device}')
 
 
-def _fpn_launch(fn, name, ptrs, shapes, strides, rois, levels, out_ptr, n,
-                out_size, sampling_ratio, aligned, flatten, dtype, vec,
-                device):
+def _launch(fn, name, ptrs, shapes, scales, rois, levels, out_ptr, n,
+            out_size, sampling_ratio, aligned, flatten, dtype, vec, device):
     k = len(shapes)
-    err = fn((ctypes.c_void_p * k)(*ptrs),
-             (ctypes.c_int * k)(*[s[1] for s in shapes]),
-             (ctypes.c_int * k)(*[s[2] for s in shapes]),
-             (ctypes.c_float * k)(*[1.0 / s for s in strides]), k,
-             rois.data_ptr(), levels.data_ptr(), out_ptr, shapes[0][0],
-             shapes[0][3], n, out_size, sampling_ratio, int(aligned),
-             int(flatten), _DTYPE_CODES[dtype], vec,
-             torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        err = fn((ctypes.c_void_p * k)(*ptrs),
+                 (ctypes.c_int * k)(*[s[1] for s in shapes]),
+                 (ctypes.c_int * k)(*[s[2] for s in shapes]),
+                 (ctypes.c_float * k)(*scales), k, rois.data_ptr(),
+                 None if levels is None else levels.data_ptr(), out_ptr,
+                 shapes[0][0], shapes[0][3], n, out_size, sampling_ratio,
+                 int(aligned), int(flatten), _DTYPE_CODES[dtype], vec,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
 
 
-def roi_align_fpn_cuda(feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                       levels: torch.Tensor,
-                       strides: Sequence[int] = (4, 8, 16, 32),
-                       out_size: int = 7, sampling_ratio: int = 2,
-                       aligned: bool = True, flatten: bool = False
-                       ) -> torch.Tensor:
-    """Launch the forward kernel `roi_align_fpn_fwd`: each RoI (B, R, 4)
-    samples the level `levels` (B, R) int32 gives it, from one (B, H_l,
-    W_l, C) map per stride, f32 or bf16 → (B, R, o, o, C), or (B, R, o·o·C)
-    x-major. One launch for all levels; raises on anything the kernel does
-    not take. Records no gradient."""
+def _out_shape(b, n, c, out_size, flatten):
+    return (b, n, out_size * out_size * c) if flatten else \
+        (b, n, out_size, out_size, c)
+
+
+def roi_align_pyramid_cuda(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                           levels: Optional[torch.Tensor],
+                           scales: Sequence[float], out_size: int = 7,
+                           sampling_ratio: int = 2, aligned: bool = True,
+                           flatten: bool = False) -> torch.Tensor:
+    """Launch the forward kernel `roi_align_pyramid_fwd`: each RoI (B, R, 4)
+    samples the level `levels` (B, R) int32 gives it (None: the one level)
+    from one (B, H_l, W_l, C) map per spatial scale, f32 or bf16 → (B, R,
+    o, o, C), or (B, R, o·o·C) x-major. One launch for all levels, counted
+    in `roi_align_pyramid_cuda.launches`; raises on anything the kernel
+    does not take. Records no gradient."""
     feats = tuple(feats)
     if any(f.dim() != 4 for f in feats):
         raise ValueError('expected feats (B,H,W,C) per level')
     shapes = [tuple(f.shape) for f in feats]
-    _check_fpn_args(feats[0], shapes, rois, levels, strides, out_size,
-                    sampling_ratio)
+    _check_args(feats[0], shapes, rois, levels, scales, out_size,
+                sampling_ratio)
     for f in feats[1:]:
-        _check_kernel_args(f, rois, shapes[0][0], out_size, sampling_ratio)
-        if f.dtype != feats[0].dtype:
-            raise TypeError('levels of one dtype expected')
+        if f.device != feats[0].device or f.dtype != feats[0].dtype or \
+                not f.is_contiguous():
+            raise ValueError('levels must share one CUDA device and dtype '
+                             'and be contiguous')
     b, c, n = shapes[0][0], shapes[0][3], rois.shape[1]
     dt = feats[0].dtype
-    shape = (b, n, out_size * out_size * c) if flatten else \
-        (b, n, out_size, out_size, c)
-    out = torch.empty(shape, dtype=dt, device=rois.device)
+    out = torch.empty(_out_shape(b, n, c, out_size, flatten), dtype=dt,
+                      device=rois.device)
     if b * n == 0:
         return out
     vec = _VEC[dt]
     if c % vec or any(t.data_ptr() % 16 for t in (*feats, out)):
         vec = 1
-    lib = _fpn_kernel_lib()
-    with torch.cuda.device(rois.device):
-        _fpn_launch(lib.roi_align_fpn_fwd, 'roi_align_fpn_fwd',
-                    [f.data_ptr() for f in feats], shapes, strides, rois,
-                    levels, out.data_ptr(), n, out_size, sampling_ratio,
-                    aligned, flatten, dt, vec, rois.device)
-    roi_align_fpn_cuda.launches += 1
+    _launch(_pyramid_lib().roi_align_pyramid_fwd, 'roi_align_pyramid_fwd',
+            [f.data_ptr() for f in feats], shapes, scales, rois, levels,
+            out.data_ptr(), n, out_size, sampling_ratio, aligned, flatten,
+            dt, vec, rois.device)
+    roi_align_pyramid_cuda.launches += 1
     return out
 
 
-roi_align_fpn_cuda.launches = 0
+roi_align_pyramid_cuda.launches = 0
 
 
-def roi_align_fpn_bwd_cuda(grad: torch.Tensor, rois: torch.Tensor,
-                           levels: torch.Tensor,
-                           shapes: Sequence[Tuple[int, int, int, int]],
-                           strides: Sequence[int] = (4, 8, 16, 32),
-                           out_size: int = 7, sampling_ratio: int = 2,
-                           aligned: bool = True, flatten: bool = False
-                           ) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward kernel `roi_align_fpn_bwd`: the gradient with
+def roi_align_pyramid_bwd_cuda(grad: torch.Tensor, rois: torch.Tensor,
+                               levels: Optional[torch.Tensor],
+                               shapes: Sequence[Tuple[int, int, int, int]],
+                               scales: Sequence[float], out_size: int = 7,
+                               sampling_ratio: int = 2, aligned: bool = True,
+                               flatten: bool = False
+                               ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel `roi_align_pyramid_bwd`: the gradient with
     respect to each level's (B, H_l, W_l, C) map of the forward's output
     gradient `grad` (either layout, f32 or bf16). Each RoI adds only into
     its own level. Sums in one f32 buffer (zeroed here, one view per level)
-    and returns the levels in `grad`'s dtype."""
+    and returns the levels in `grad`'s dtype; the launch is counted in
+    `roi_align_pyramid_bwd_cuda.launches`."""
     shapes = [tuple(s) for s in shapes]
-    _check_fpn_args(grad, shapes, rois, levels, strides, out_size,
-                    sampling_ratio)
+    _check_args(grad, shapes, rois, levels, scales, out_size, sampling_ratio)
     b, c, n = shapes[0][0], shapes[0][3], rois.shape[1]
-    shape = (b, n, out_size * out_size * c) if flatten else \
-        (b, n, out_size, out_size, c)
+    shape = _out_shape(b, n, c, out_size, flatten)
     if tuple(grad.shape) != shape:
         raise ValueError(f'grad shape {tuple(grad.shape)}, expected {shape}')
     sizes = [b * h * w * c for _, h, w, _ in shapes]
@@ -472,42 +323,74 @@ def roi_align_fpn_bwd_cuda(grad: torch.Tensor, rois: torch.Tensor,
         vec = _VEC[grad.dtype]
         if c % vec or any(t.data_ptr() % 16 for t in (grad, *grads)):
             vec = 1
-        lib = _fpn_kernel_lib()
-        with torch.cuda.device(grad.device):
-            _fpn_launch(lib.roi_align_fpn_bwd, 'roi_align_fpn_bwd',
-                        [g.data_ptr() for g in grads], shapes, strides, rois,
-                        levels, grad.data_ptr(), n, out_size, sampling_ratio,
-                        aligned, flatten, grad.dtype, vec, grad.device)
-        roi_align_fpn_bwd_cuda.launches += 1
+        _launch(_pyramid_lib().roi_align_pyramid_bwd,
+                'roi_align_pyramid_bwd', [g.data_ptr() for g in grads],
+                shapes, scales, rois, levels, grad.data_ptr(), n, out_size,
+                sampling_ratio, aligned, flatten, grad.dtype, vec,
+                grad.device)
+        roi_align_pyramid_bwd_cuda.launches += 1
     if grad.dtype == torch.float32:
         return tuple(grads)
     return tuple(g.to(grad.dtype) for g in grads)
 
 
-roi_align_fpn_bwd_cuda.launches = 0
+roi_align_pyramid_bwd_cuda.launches = 0
 
 
-class RoIAlignFPNFunction(torch.autograd.Function):
-    """Multi-level RoIAlign on CUDA with a gradient: the forward launches
-    `roi_align_fpn_fwd`, the backward `roi_align_fpn_bwd`; rois and levels
-    get no gradient. `args` = (strides, out_size, sampling_ratio, aligned,
-    flatten); the levels' maps follow it."""
+class RoIAlignPyramidFunction(torch.autograd.Function):
+    """RoIAlign on CUDA with a gradient, for one level or several: the
+    forward launches `roi_align_pyramid_fwd`, the backward
+    `roi_align_pyramid_bwd`; rois and levels get no gradient. `args` =
+    (scales, out_size, sampling_ratio, aligned, flatten); the levels' maps
+    follow it."""
 
     @staticmethod
     def forward(ctx, rois, levels, args, *feats):
         ctx.save_for_backward(rois, levels)
         ctx.shapes = [tuple(f.shape) for f in feats]
         ctx.args = args
-        return roi_align_fpn_cuda(feats, rois, levels, *args)
+        return roi_align_pyramid_cuda(feats, rois, levels, *args)
 
     @staticmethod
     def backward(ctx, grad):
         rois, levels = ctx.saved_tensors
         grads = (None,) * len(ctx.shapes)
         if any(ctx.needs_input_grad[3:]):
-            grads = roi_align_fpn_bwd_cuda(grad.contiguous(), rois, levels,
-                                           ctx.shapes, *ctx.args)
+            grads = roi_align_pyramid_bwd_cuda(grad.contiguous(), rois,
+                                               levels, ctx.shapes, *ctx.args)
         return (None, None, None, *grads)
+
+
+def _on_card(feats, rois, levels, scales, out_size, sampling_ratio, aligned,
+             flatten):
+    args = (tuple(float(s) for s in scales), out_size, sampling_ratio,
+            aligned, flatten)
+    if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
+        return RoIAlignPyramidFunction.apply(rois, levels, args, *feats)
+    return roi_align_pyramid_cuda(feats, rois, levels, *args)
+
+
+def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor,
+                      spatial_scale: float, out_size: int = 7,
+                      sampling_ratio: int = 2, aligned: bool = True,
+                      flatten: bool = False) -> torch.Tensor:
+    """Batched RoIAlign: (B,H,W,C) x (B,R,4) → (B,R,o,o,C), or (B,R,o·o·C)
+    in x-major order with `flatten=True`.
+
+    CPU tensors take the plain version (and its autograd). CUDA tensors
+    launch the kernel pair at one level, with no level array, or raise:
+    the forward `roi_align_pyramid_fwd` and, when feats need a gradient,
+    through :class:`RoIAlignPyramidFunction`, the backward
+    `roi_align_pyramid_bwd`.
+    """
+    rois = rois.detach()
+    if feats.device.type == 'cpu':
+        return batched_roi_align_plain(feats, rois, spatial_scale, out_size,
+                                       sampling_ratio, aligned, flatten)
+    if feats.device.type == 'cuda':
+        return _on_card((feats,), rois, None, (spatial_scale,), out_size,
+                        sampling_ratio, aligned, flatten)
+    raise ValueError(f'no RoIAlign for device {feats.device}')
 
 
 def batched_roi_align_fpn(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -521,10 +404,8 @@ def batched_roi_align_fpn(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     o, C), or (B, R, o·o·C) x-major with `flatten=True`.
 
     CPU tensors take the plain version (and its autograd). CUDA tensors
-    launch `roi_align_fpn_fwd` (counted in `roi_align_fpn_cuda.launches`)
-    or raise; when grad is recorded and a level requires it, through
-    :class:`RoIAlignFPNFunction`, whose backward launches
-    `roi_align_fpn_bwd` (counted in `roi_align_fpn_bwd_cuda.launches`).
+    launch the kernel pair, one launch for all levels, with the levels
+    computed here in torch, or raise.
     """
     feats = tuple(feats)
     if len(feats) < len(strides):
@@ -539,8 +420,6 @@ def batched_roi_align_fpn(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                                            finest_scale, flatten)
     if device.type == 'cuda':
         levels = roi_levels(rois, len(strides), finest_scale).contiguous()
-        args = (tuple(strides), out_size, sampling_ratio, aligned, flatten)
-        if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
-            return RoIAlignFPNFunction.apply(rois, levels, args, *feats)
-        return roi_align_fpn_cuda(feats, rois, levels, *args)
+        return _on_card(feats, rois, levels, [1.0 / s for s in strides],
+                        out_size, sampling_ratio, aligned, flatten)
     raise ValueError(f'no RoIAlign for device {device}')
