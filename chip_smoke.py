@@ -56,6 +56,42 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    card against the same weights on the CPU (plain versions), TF32 off:
    inference, and one train step with dropout off and the same sampler
    priorities.
+9. mask kernels — the pair in the mask slice's three regimes, f32 and
+   bf16, against the plain version, forwards timed: (a) 14x14 mask
+   features on four levels (C = 256), forward and backward, and on
+   detections with zero-area padded rows; (b) the mask targets, 28x28 and
+   14x14 crops of 2 x 512 single-RoI 112x112 rasters (C = 1, scale 1,
+   aligned=False) whose RoIs run from inside to far beyond the raster, some
+   under a pixel; (c) C4's 14x14 crops at C = 1024, forward and backward.
+10. mask serving — `init_detector` on the Cityscapes Mask R-CNN R50-FPN
+   config (configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py, full
+   width, 8 classes), 4 requests as in 4, each launching the forward twice
+   (box and mask features) and the backward never; on the last request the
+   kernel's mask features of the detections match the plain version's,
+   `predict`'s masks are finite and in [0, 1], and `paste_masks` on the
+   card equals the CPU's.
+11. mask train — `init_trainer` on the same config, 1 warm-up and 5 timed
+   steps past the lr warmup on the 2 images of 512x1024 with seeded
+   box-frame ellipse rasters (112x112): each step launches the forward 3
+   times (box, mask features, mask targets) and the backward twice;
+   afterwards the stem and layer1 are bit-identical and every other
+   parameter, the mask head's included, has moved. Then the RoIs that a
+   step of the trained model samples hold (a) and (b) to the plain
+   version, and the o=14 backward is timed on them.
+12. c4 serving — the same on configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x.py
+   (MaskRCNNC4: R50 to C4, res5 as the shared RoI head, 80 classes; served
+   at score_thr 0.001, since random weights score each of the 80 classes
+   ~1/81), each request launching the forward twice (proposals,
+   detections); the
+   kernel's C = 1024 crops of the last request's proposals match the plain
+   version's; masks and `paste_masks` as in 10.
+13. c4 train — as 11, each step launching the forward twice (RoIs, 14x14
+   targets) and the backward once; (c) and (b) held on a trained step's
+   RoIs, the backward timed there.
+14. mask reference — a tiny Mask R-CNN (configs/da/synth_mask_smoke.py:
+   R18, 2 classes, 128x192) and a tiny R18 Mask R-CNN C4: card vs CPU,
+   inference (detections within 1e-3, masks within 1e-4) and one train
+   step (losses 1e-4 relative, parameters 1e-4 of scale).
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -74,14 +110,18 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ap
     inference_detector, init_detector, init_trainer, prepare_batch)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.dense_heads.rpn_head import \
     rpn_proposals
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors.mask_rcnn import \
+    paste_masks
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers.norm import \
     BatchNorm
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.roi_heads.mask_head import \
+    box_frame_crops
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.roi_heads.standard_roi_head import \
     sample_rois
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ops import (
     cuda_build, roi_align)
-from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train import \
-    demo_batch
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train import (
+    demo_batch, ellipse_masks)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.utils.config import \
     Config
 
@@ -206,15 +246,15 @@ def make_rois(gen, b, n, h, w, stride=16):
     return rois.contiguous()
 
 
-def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16):
+def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16, aligned=True):
     """What this run's RoIs (per image, (R, 4)) make RoIAlign touch: the
     feature pixels any nonzero tap reads (per image, over all its RoIs), the
     nonzero (sample, tap) products over all bins, per channel, and the
     distinct (RoI, pixel) pairs with a nonzero weight: one float4 atomic
     each per channel vector in the backward kernel, where the nonzero
     products were one each before."""
-    wx, wy = zip(*(roi_align._roi_weights(r, scale, out_size, sr, True, h, w)
-                   for r in rois))
+    wx, wy = zip(*(roi_align._roi_weights(r, scale, out_size, sr, aligned,
+                                          h, w) for r in rois))
     touched = sum(int(((y.sum(1) != 0).float().T @ (x.sum(1) != 0).float()
                        > 0).sum()) for x, y in zip(wx, wy))
     pairs = sum(int(((x.sum(1) != 0).sum(1) * (y.sum(1) != 0).sum(1)).sum())
@@ -230,12 +270,16 @@ def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16):
         return (valid * ((frac < 1).int() + (frac > 0).int())).sum(-1)
 
     sc = torch.cat([r.reshape(-1, 4) for r in rois]) * scale
-    nx = taps_per_bin(sc[:, 0] - 0.5, (sc[:, 2] - sc[:, 0]) / out_size, w)
-    ny = taps_per_bin(sc[:, 1] - 0.5, (sc[:, 3] - sc[:, 1]) / out_size, h)
+    off, least = (0.5, 0.0) if aligned else (0.0, 1.0)   # legacy min size 1
+    nx = taps_per_bin(sc[:, 0] - off,
+                      (sc[:, 2] - sc[:, 0]).clamp(min=least) / out_size, w)
+    ny = taps_per_bin(sc[:, 1] - off,
+                      (sc[:, 3] - sc[:, 1]).clamp(min=least) / out_size, h)
     return touched, int((nx.sum(1) * ny.sum(1)).sum()), pairs
 
 
-def roi_align_work(rois, h, w, c, out_size=7, backward=False):
+def roi_align_work(rois, h, w, c, out_size=7, backward=False, scale=1 / 16,
+                   aligned=True):
     """Bytes and operations this run's RoIAlign needs. Forward: the output
     written once, each touched feature pixel read once, the RoIs; one FMA
     per nonzero product and channel, one scale per output. Backward: the
@@ -243,7 +287,8 @@ def roi_align_work(rois, h, w, c, out_size=7, backward=False):
     RoIs (the zeroing pass that the kernel's atomics need is its own
     overhead, not part of the function); one scale per gradient element,
     one multiply and one add per nonzero product and channel."""
-    touched, products, _ = roi_align_taps(rois, h, w, out_size)
+    touched, products, _ = roi_align_taps(rois, h, w, out_size, scale=scale,
+                                          aligned=aligned)
     b, n = rois.shape[:2]
     n_out = b * n * out_size * out_size * c
     feat_bytes = b * h * w * c if backward else touched * c
@@ -337,9 +382,10 @@ def fpn_fwd(feats, rois, levels, flatten=True, out_size=7):
                                             out_size, flatten=flatten)
 
 
-def fpn_bwd(grad, rois, levels, shapes, flatten=True):
+def fpn_bwd(grad, rois, levels, shapes, flatten=True, out_size=7):
     return roi_align.roi_align_pyramid_bwd_cuda(grad, rois, levels, shapes,
-                                                FPN_SCALES, flatten=flatten)
+                                                FPN_SCALES, out_size,
+                                                flatten=flatten)
 
 
 def plain_backward(feats, rois, grad, flatten):
@@ -475,23 +521,26 @@ def _level_counts(levels):
     return counts
 
 
-def time_fpn_backward(name, feats, rois, grad, worst):
+def time_fpn_backward(name, feats, rois, grad, worst, out_size=7,
+                      flatten=True, replaces=1121):
     """`time_dc5_backward` on the four levels."""
     levels = roi_align.roi_levels(rois, 4)
     shapes = [tuple(f.shape) for f in feats]
     sizes = [s[1:3] for s in shapes]
     c = shapes[0][3]
-    ms = time_ms(lambda: fpn_bwd(grad, rois, levels, shapes), 20)
+    ms = time_ms(lambda: fpn_bwd(grad, rois, levels, shapes, flatten,
+                                 out_size), 20)
     plain_ms = plain_backward_ms(
-        lambda fs: roi_align.batched_roi_align_fpn_plain(fs, rois,
-                                                         flatten=True),
-        feats, grad)
-    nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c, backward=True)
-    entry = _entry(name, 1121, nbytes, ops, max_abs_err=worst, ms=ms,
+        lambda fs: roi_align.batched_roi_align_fpn_plain(
+            fs, rois, out_size=out_size, flatten=flatten), feats, grad)
+    nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c, out_size,
+                                     backward=True)
+    entry = _entry(name, replaces, nbytes, ops, max_abs_err=worst, ms=ms,
                    plain_ms=plain_ms)
-    old, new = atomic_adds(rois, sizes, FPN_STRIDES, c, levels)
+    old, new = atomic_adds(rois, sizes, FPN_STRIDES, c, levels, out_size)
     log(f'kernels: {name} f32 pyramid {sizes} C={c} x '
-        f'{rois.shape[0]}x{rois.shape[1]} rois flat g: {ms:.4f} ms, plain '
+        f'{rois.shape[0]}x{rois.shape[1]} rois o={out_size} '
+        f'{"flat" if flatten else "NHWC"} g: {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
         f'({entry["bound_by"]}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} '
         f'GFLOP); f32 atomic adds {old / 1e9:.3f} G in the earlier design, '
@@ -568,7 +617,7 @@ def phase_fpn_kernels():
     return [fwd, time_fpn_backward(BWD_FPN, feats, rois, grad, worst)]
 
 
-def _check_result(res, shape_hw, num_classes, max_det):
+def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05):
     h, w = shape_hw
     if len(res) != num_classes:
         raise RuntimeError(f'{len(res)} class arrays, expected {num_classes}')
@@ -583,7 +632,7 @@ def _check_result(res, shape_hw, num_classes, max_det):
                 or (boxes[:, 1::2] > h + 1e-2).any() \
                 or (boxes[:, 2:] < boxes[:, :2]).any():
             raise RuntimeError('dets outside the image or inverted')
-        if ((scores <= 0.05) | (scores > 1.0)).any():
+        if ((scores <= score_thr) | (scores > 1.0)).any():
             raise RuntimeError('scores outside (score_thr, 1]')
         total += len(det)
     if total > max_det:
@@ -591,19 +640,21 @@ def _check_result(res, shape_hw, num_classes, max_det):
     return total
 
 
-def _serve(card, config, label, expect):
-    """`init_detector` on `config` (full width, seeded random weights), one
-    warm-up request and 4 timed requests of 2 seeded Cityscapes-size
-    images. `expect` maps a kernel's name to (its launch counter, launches
-    per request); the counters are set to 0 just before the timed requests
-    and checked after each. Returns the bundle, the requests and the
-    launch counts."""
+def _serve(card, config, label, expect, overrides=None):
+    """`init_detector` on `config` (full width, seeded random weights; with
+    `overrides` merged in), one warm-up request and 4 timed requests of 2
+    seeded Cityscapes-size images. `expect` maps a kernel's name to (its
+    launch counter, launches per request); the counters are set to 0 just
+    before the timed requests and checked after each. Returns the bundle,
+    the requests and the launch counts."""
     # serving runs with PyTorch's defaults: cuDNN convolutions in TF32,
     # matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    bundle = init_detector(config, device='cuda', seed=0)
+    cfg = Config.fromfile(config)
+    cfg.merge_from_dict(overrides or {})
+    bundle = init_detector(cfg, device='cuda', seed=0)
     torch.cuda.synchronize()
     log(f'{label}: init_detector {config} on cuda in '
         f'{time.perf_counter() - t0:.2f} s; canvas {bundle.canvas}, '
@@ -629,7 +680,9 @@ def _serve(card, config, label, expect):
         res = inference_detector(bundle, req)
         latencies.append(1e3 * (time.perf_counter() - t0))
         for r in res:
-            n_dets += _check_result(r, (1024, 2048), 8, 100)
+            n_dets += _check_result(r, (1024, 2048),
+                                    bundle.model.num_classes, 100,
+                                    bundle.model.roi_test_cfg.score_thr)
         for name, (fn, per_request) in expect.items():
             if fn.launches != i * per_request:
                 raise RuntimeError(f'{name}: {fn.launches} launches after '
@@ -650,8 +703,9 @@ SERVING_LAUNCHES = {
     'roi_align_pyramid_fwd': (roi_align.roi_align_pyramid_cuda, 1),
     'roi_align_pyramid_bwd': (roi_align.roi_align_pyramid_bwd_cuda, 0)}
 # a train step launches each of the pair once
-STEP_LAUNCHES = {'roi_align_pyramid_fwd': roi_align.roi_align_pyramid_cuda,
-                 'roi_align_pyramid_bwd': roi_align.roi_align_pyramid_bwd_cuda}
+STEP_LAUNCHES = {
+    'roi_align_pyramid_fwd': (roi_align.roi_align_pyramid_cuda, 1),
+    'roi_align_pyramid_bwd': (roi_align.roi_align_pyramid_bwd_cuda, 1)}
 
 
 def phase_main_path(card, kernels):
@@ -708,13 +762,14 @@ def phase_fpn_serving(card, kernels):
                            f'{TOL_F32 * scale}')
 
 
-def _train(card, config, steps_per_epoch, label, counters):
+def _train(card, config, steps_per_epoch, label, counters, batch=None):
     """`init_trainer` on `config` (full width, f32, seeded random weights)
-    and 1 warm-up + 5 timed steps past the lr warmup on the seeded batch of
-    2 images of 512x1024. Each step must launch every kernel of `counters`
-    once (counts set to 0 before the step, read after) and give finite
-    losses. Returns (trainer, state, start parameters, step ms, launches,
-    peak bytes)."""
+    and 1 warm-up + 5 timed steps past the lr warmup on `batch` (by default
+    the seeded batch of 2 images of 512x1024). `counters` maps a kernel's
+    name to (its launch counter, launches per step): each step must launch
+    each that often (counts set to 0 before the step, read after) and give
+    finite losses. Returns (trainer, state, start parameters, step ms,
+    launches, peak bytes)."""
     # training runs with PyTorch's defaults, as serving does: cuDNN
     # convolutions in TF32, matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
@@ -729,7 +784,8 @@ def _train(card, config, steps_per_epoch, label, counters):
         f'{sum(p.numel() for p in params.values()) / 1e6:.1f} M params, '
         f'{sum(p.numel() for p in params.values() if p.requires_grad) / 1e6:.1f}'
         f' M trainable; {trainer.spec}')
-    batch = demo_batch()                # 2 images of 512x1024, on the card
+    if batch is None:
+        batch = demo_batch()            # 2 images of 512x1024, on the card
     gen = torch.Generator(device='cuda').manual_seed(0)
     start = {n: p.detach().clone() for n, p in params.items()}
     totals = dict.fromkeys(counters, 0)
@@ -740,16 +796,17 @@ def _train(card, config, steps_per_epoch, label, counters):
     state, times = trainer.state, []
     state = state._replace(opt_state=state.opt_state._replace(count=500))
     for i in range(6):                  # 1 warm-up + 5 timed steps
-        for fn in counters.values():
+        for fn, _ in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
         state, metrics = trainer.step(state, batch, gen)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        for name, fn in counters.items():
-            if fn.launches != 1:
+        for name, (fn, per_step) in counters.items():
+            if fn.launches != per_step:
                 raise RuntimeError(f'{label} step {i}: {name} launched '
-                                   f'{fn.launches} times, expected 1')
+                                   f'{fn.launches} times, expected '
+                                   f'{per_step}')
             totals[name] += fn.launches
         values = {k: float(v) for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in values.values()) \
@@ -857,8 +914,9 @@ def fpn_level_batch():
 
 def sample_step_rois(model, batch, seed):
     """The RoIs that a train step of `model` samples from `batch`
-    (proposals and gt boxes, as the detectors' `loss` samples them), the
-    maps RoIAlign reads them from, and the generator that drew them."""
+    (proposals and gt boxes, as the detectors' `loss` samples them, with
+    their matched gts), the maps RoIAlign reads them from, and the
+    generator that drew them."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     with torch.no_grad():
         feats = model.extract_feat(batch['image'])
@@ -870,7 +928,7 @@ def sample_step_rois(model, batch, seed):
             batch['gt_valid'], model.num_classes, model.roi_train_cfg,
             generator=gen)
         maps = model.roi_maps(feats)
-    return maps, sampled.rois.contiguous(), gen
+    return maps, sampled._replace(rois=sampled.rois.contiguous()), gen
 
 
 def dc5_kernels_on_sampled_rois(model):
@@ -881,7 +939,8 @@ def dc5_kernels_on_sampled_rois(model):
     seeded cotangent, which is then timed beside the plain version's.
     Returns the backward's entry."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    feats, rois, gen = sample_step_rois(model, demo_batch(), 3)
+    feats, sampled, gen = sample_step_rois(model, demo_batch(), 3)
+    rois = sampled.rois
     log(f'train: {tuple(rois.shape[:2])} sampled RoIs on the '
         f'{tuple(feats.shape)} map')
     got = dc5_fwd(feats, rois)
@@ -901,7 +960,8 @@ def fpn_kernels_on_sampled_rois(model):
     backward on a seeded cotangent, then timed. Fails if a level gets no
     RoI. Returns the backward's entry."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    pyramid, rois, gen = sample_step_rois(model, fpn_level_batch(), 3)
+    pyramid, sampled, gen = sample_step_rois(model, fpn_level_batch(), 3)
+    rois = sampled.rois
     levels = roi_align.roi_levels(rois, 4)
     log(f'fpn train: {tuple(rois.shape[:2])} sampled RoIs, per level P2..P5 '
         f'{_level_counts(levels)}')
@@ -925,18 +985,34 @@ def _fpn_tiny_cfg():
 
 def phase_reference(config=TINY, label='tiny fixture', hw=(64, 96), seed=3):
     """A tiny detector: card (kernels) vs CPU (plain versions), from the
-    same weights, TF32 off: detections within 1e-3."""
+    same weights, TF32 off: detections within 1e-3; for a mask detector
+    also `predict`'s labels and validity identical and its masks, every
+    row, within 1e-4."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rs = np.random.RandomState(1)
     imgs = [rs.randint(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(2)]
-    outs = []
+    outs, preds = [], []
     for device in ('cuda', 'cpu'):
         bundle = init_detector(config, device='cpu', seed=seed)
         if device == 'cuda':
             bundle = bundle._replace(model=bundle.model.to('cuda'),
                                      device=torch.device('cuda'))
         outs.append(inference_detector(bundle, imgs))
+        if hasattr(bundle.model, 'mask_head'):
+            preds.append({k: v.cpu() for k, v in bundle.model.predict(
+                prepare_batch(bundle, imgs)[0]).items()})
+    if preds:
+        (got, ref), masks = preds, preds[1]['masks']
+        mask_err = float((got['masks'] - masks).abs().max())
+        log(f'reference: {label} masks {tuple(masks.shape)} card vs CPU '
+            f'max_abs_err {mask_err:.3e} ({int((~ref["valid"]).sum())} '
+            'padded rows)')
+        if not (torch.equal(got['labels'], ref['labels'])
+                and torch.equal(got['valid'], ref['valid'])
+                and mask_err <= 1e-4):
+            raise RuntimeError(f'{label}: card and CPU masks disagree '
+                               f'({mask_err})')
     worst = 0.0
     for g_img, r_img in zip(*outs):
         for g, r in zip(g_img, r_img):
@@ -952,7 +1028,8 @@ def phase_reference(config=TINY, label='tiny fixture', hw=(64, 96), seed=3):
 
 
 def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
-                          anchors=4 * 6 * 6, proposals=64, seed=3):
+                          anchors=4 * 6 * 6, proposals=64, seed=3,
+                          mask_size=None):
     """One tiny train step on the card (kernels) against the same step on
     the CPU (plain versions), from the same weights, TF32 off, dropout off
     and the same sampler priorities (`anchors` and 6 gt + `proposals`
@@ -968,7 +1045,8 @@ def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
     trainers = [init_trainer(cfg, device=d, seed=seed, steps_per_epoch=1)
                 for d in ('cpu', 'cuda')]
     trainers[1].model.load_state_dict(trainers[0].model.state_dict())
-    batch = demo_batch(2, *hw, g=6, num_classes=2, seed=4, device='cpu')
+    batch = demo_batch(2, *hw, g=6, num_classes=2, seed=4, device='cpu',
+                       mask_size=mask_size)
     gen = torch.Generator().manual_seed(5)
     pri = dict(rpn=torch.rand(2, anchors, generator=gen),
                rcnn=torch.rand(2, 6 + proposals, generator=gen))
@@ -1012,6 +1090,445 @@ def phase_fpn_reference():
         raise RuntimeError('tiny FPN on the card did not run its kernels')
 
 
+# ---- the mask slice: Mask R-CNN R50-FPN (Cityscapes) and R50-C4 ------------
+
+MASK = 'configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py'
+C4 = 'configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x.py'
+MASK_TINY = 'configs/da/synth_mask_smoke.py'
+# the tiny references' proposal and sample counts and 128x192 canvas, as
+# FPN_TINY's and for the same reason; their weight seeds are ones whose top
+# 65 RPN logits lie >= 1.9e-5 (mask) and >= 2.2e-5 (C4) apart on the
+# reference images and on the train batch (a CPU count)
+FEW_PROPOSALS = {'model.rpn_proposal_cfg': dict(nms_pre=64, max_per_img=32),
+                 'model.rpn_test_cfg': dict(nms_pre=64, max_per_img=32),
+                 'model.roi_train_cfg': dict(num_samples=32),
+                 'data.test.pipeline': [dict(type='MultiScaleFlipAug',
+                                             img_scale=(192, 128))]}
+MASK_TINY_SEED = 37
+C4_TINY = {'model.backbone_depth': 18, 'model.num_classes': 2}
+C4_TINY_SEED = 13
+# box-frame raster size: `LoadAnnotations`' default mask_size
+MASK_M = 112
+# steps per epoch of the C4 config's loader: COCO train2017's 118287
+# images, 2 a step
+COCO_STEPS = 59144
+FWD_MASK, BWD_MASK_STEP = ('roi_align_pyramid_fwd/mask_fpn',
+                           'roi_align_pyramid_bwd/mask_fpn_step')
+FWD_TARGETS = 'roi_align_pyramid_fwd/mask_targets'
+FWD_C4, BWD_C4_STEP = 'roi_align_pyramid_fwd/c4', 'roi_align_pyramid_bwd/c4_step'
+FWD, BWD = roi_align.roi_align_pyramid_cuda, roi_align.roi_align_pyramid_bwd_cuda
+# a request launches the forward for the box and the mask features; a step
+# for those and the mask targets, and the backward for both features
+MASK_SERVING_LAUNCHES = {'roi_align_pyramid_fwd': (FWD, 2),
+                         'roi_align_pyramid_bwd': (BWD, 0)}
+MASK_STEP_LAUNCHES = {'roi_align_pyramid_fwd': (FWD, 3),
+                      'roi_align_pyramid_bwd': (BWD, 2)}
+# C4: a request crops the proposals and the detections; a step the sampled
+# RoIs (their res5 output feeds box and mask head) and the mask targets
+C4_SERVING_LAUNCHES = {'roi_align_pyramid_fwd': (FWD, 2),
+                       'roi_align_pyramid_bwd': (BWD, 0)}
+# with random weights the 80-class head scores every class ~1/81, under the
+# config's score_thr of 0.05, so no detection would reach the mask branch:
+# C4 serves at score_thr 0.001
+C4_SERVING = {'model.roi_test_cfg': dict(score_thr=0.001)}
+C4_STEP_LAUNCHES = {'roi_align_pyramid_fwd': (FWD, 2),
+                    'roi_align_pyramid_bwd': (BWD, 1)}
+
+
+def targets_fwd(rasters, frame_rois, out_size=28):
+    """The pair's forward as the mask targets launch it: (B·S, M, M, 1)
+    single-RoI rasters, scale 1, the legacy aligned=False geometry."""
+    return roi_align.roi_align_pyramid_cuda([rasters], frame_rois, None,
+                                            (1.0,), out_size, aligned=False)
+
+
+def targets_plain(rasters, frame_rois, out_size=28):
+    return roi_align.batched_roi_align_plain(rasters, frame_rois, 1.0,
+                                             out_size, aligned=False)
+
+
+def c4_fwd(feats, rois):
+    """The pair's forward as C4 launches it: one level at stride 16,
+    o = 14, (B, R, 14, 14, C)."""
+    return dc5_fwd(feats, rois, flatten=False, out_size=14)
+
+
+def c4_bwd(grad, rois, shape):
+    return roi_align.roi_align_pyramid_bwd_cuda(
+        grad, rois, None, [shape], (1 / 16,), 14)[0]
+
+
+def c4_plain(feats, rois):
+    return roi_align.batched_roi_align_plain(feats, rois, 1 / 16, 14)
+
+
+def mask_plain(feats, rois):
+    """The plain multi-level version at the mask features' o = 14."""
+    return roi_align.batched_roi_align_fpn_plain(feats, rois, out_size=14)
+
+
+def make_frame_rois(gen, n, m):
+    """n seeded RoIs in an M-sized box frame, one per raster, as positives
+    map there (IoU >= 0.5 with their gt: coordinates about [-M, 2M]): from
+    inside the raster to far beyond it, a fifth under one pixel wide, and
+    edge cases (zero, exact frame, beyond every side, sub-pixel)."""
+    u = torch.rand(n, 4, generator=gen, device='cuda')
+    lo = (u[:, :2] * 2.2 - 1.0) * m
+    size = torch.exp(math.log(0.2) + u[:, 2:] * math.log(1.6 * m / 0.2))
+    rois = torch.cat([lo, lo + size], -1)
+    special = torch.tensor([
+        [0, 0, 0, 0], [0, 0, m, m], [-m, -m, 2 * m, 2 * m],
+        [-0.9 * m, 0.2 * m, -0.1 * m, 0.7 * m],
+        [1.1 * m, 1.2 * m, 1.9 * m, 1.95 * m],
+        [40.3, 50.1, 40.6, 50.5], [m - 0.4, 3.0, m + 0.3, 3.2]],
+        device='cuda')
+    rois[:len(special)] = special
+    return rois[:, None].contiguous()
+
+
+def _plain_grads(plain, feats, rois, grad):
+    """d feats of the plain version `plain(levels, rois)` (one level: a
+    list of one map), by its autograd."""
+    fs = [f.detach().requires_grad_() for f in feats]
+    return torch.autograd.grad(plain(fs if len(fs) > 1 else fs[0], rois),
+                               fs, grad)
+
+
+def phase_mask_kernels():
+    """The pair in the mask slice's three regimes, f32 and bf16, against
+    the plain version: (a) 14x14 mask features on four levels (C = 256),
+    forward and backward on the 512x1024 training pyramid and forward on
+    the serving pyramid's detections; (b) the mask targets, 28x28 from
+    2 x 512 single-RoI rasters of 112x112 (C = 1, scale 1, aligned=False);
+    (c) C4's 14x14 RoI crops at one level, C = 1024, forward at the serving
+    shape (2 x 1000 proposals on 38x64) and backward at the training shape
+    (2 x 512 on 32x64). Times the forwards; the backwards are timed on the
+    RoIs trained steps sample (phases 11 and 13)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    kernels = []
+
+    # (a) the FPN mask features, o = 14, (B, R, 14, 14, 256)
+    b, c, n = 2, 256, 512
+    sizes = [(512 // st, 1024 // st) for st in FPN_STRIDES]
+    feats = [torch.randn(b, h, w, c, generator=gen, device='cuda')
+             for h, w in sizes]
+    shapes = [tuple(f.shape) for f in feats]
+    rois = make_fpn_rois(gen, b, n, 512, 1024)
+    levels = roi_align.roi_levels(rois, 4)
+    log(f'kernels: {FWD_MASK} RoIs per level P2..P5 {_level_counts(levels)}')
+    grad = torch.randn(b, n, 14, 14, c, generator=gen, device='cuda')
+    worst = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        fs, g = [f.to(dtype) for f in feats], grad.to(dtype)
+        err = _check(FWD_MASK, fpn_fwd(fs, rois, levels, False, 14),
+                     mask_plain(fs, rois), tol, f'{str(dtype)[6:]} o=14')
+        got = fpn_bwd(g, rois, levels, shapes, False, 14)
+        for lvl, (gg, rr) in enumerate(zip(got, _plain_grads(
+                mask_plain, fs, rois, g))):
+            _check(BWD_MASK_STEP, gg, rr, tol,
+                   f'{str(dtype)[6:]} o=14 P{lvl + 2}')
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        del fs, g, got
+    ms = time_ms(lambda: fpn_fwd(feats, rois, levels, False, 14), 20)
+    plain_ms = time_ms(lambda: mask_plain(feats, rois), 3, warmup=1)
+    nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c, 14)
+    fwd = _entry(FWD_MASK, 944, nbytes, ops, max_abs_err=worst, ms=ms,
+                 plain_ms=plain_ms)
+    log(f'kernels: {FWD_MASK} f32 pyramid of 512x1024 C=256 x 2x512 rois '
+        f'o=14: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{fwd["bound_ms"]:.4f} ms ({fwd["bound_by"]}: {nbytes / 1e6:.1f} '
+        f'MB, {ops / 1e9:.2f} GFLOP)')
+    kernels.append(fwd)
+    # the serving pyramid's 2 x 100 detections, zero-area padded rows
+    # included (they fall on P2 and sample one point per bin)
+    sizes = [(608 // st, 1024 // st) for st in FPN_STRIDES]
+    feats = [torch.randn(b, h, w, c, generator=gen, device='cuda')
+             for h, w in sizes]
+    rois = make_fpn_rois(gen, b, 100, 608, 1024)
+    rois[:, 60:] = 0
+    levels = roi_align.roi_levels(rois, 4)
+    _check(FWD_MASK, fpn_fwd(feats, rois, levels, False, 14),
+           mask_plain(feats, rois), TOL_F32,
+           'f32 o=14 on 2x100 detections, 40 zero-area')
+    del feats, grad
+
+    # (b) the mask targets: 2 x 512 single-RoI rasters, M = 112
+    rasters = torch.from_numpy(ellipse_masks(
+        np.random.RandomState(5), (b * n,), MASK_M)).cuda()[..., None].float()
+    frame = make_frame_rois(gen, b * n, MASK_M)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        r = rasters.to(dtype)
+        for out_size in (28, 14):
+            err = _check(FWD_TARGETS, targets_fwd(r, frame, out_size),
+                         targets_plain(r, frame, out_size), tol,
+                         f'{str(dtype)[6:]} o={out_size} C=1 aligned=False')
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    ms = time_ms(lambda: targets_fwd(rasters, frame), 20)
+    plain_ms = time_ms(lambda: targets_plain(rasters, frame), 3, warmup=1)
+    nbytes, ops = roi_align_work(frame, MASK_M, MASK_M, 1, 28, scale=1.0,
+                                 aligned=False)
+    entry = _entry(FWD_TARGETS, 237, nbytes, ops, max_abs_err=worst, ms=ms,
+                   plain_ms=plain_ms)
+    log(f'kernels: {FWD_TARGETS} f32 {b * n} rasters {MASK_M}x{MASK_M}x1 '
+        f'o=28: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}: '
+        f'{nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP)')
+    kernels.append(entry)
+    del rasters
+
+    # (c) C4's crops: one level, C = 1024, o = 14
+    c = 1024
+    feats = torch.randn(b, 38, 64, c, generator=gen, device='cuda')
+    rois = make_rois(gen, b, 1000, 38, 64)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        f = feats.to(dtype)
+        err = _check(FWD_C4, c4_fwd(f, rois), c4_plain(f, rois), tol,
+                     f'{str(dtype)[6:]} o=14 C=1024')
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        del f
+    ms = time_ms(lambda: c4_fwd(feats, rois), 20)
+    plain_ms = time_ms(lambda: c4_plain(feats, rois), 3, warmup=1)
+    nbytes, ops = roi_align_work(rois, 38, 64, c, 14)
+    entry = _entry(FWD_C4, 434, nbytes, ops, max_abs_err=worst, ms=ms,
+                   plain_ms=plain_ms)
+    log(f'kernels: {FWD_C4} f32 (2,38,64,1024) x 2x1000 rois o=14: '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}: '
+        f'{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)')
+    kernels.append(entry)
+    del feats, rois
+    feats = torch.randn(b, 32, 64, c, generator=gen, device='cuda')
+    rois = make_rois(gen, b, 512, 32, 64)
+    grad = torch.randn(b, 512, 14, 14, c, generator=gen, device='cuda')
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        f, g = feats.to(dtype), grad.to(dtype)
+        _check(BWD_C4_STEP, c4_bwd(g, rois, tuple(f.shape)),
+               _plain_grads(c4_plain, [f], rois, g)[0], tol,
+               f'{str(dtype)[6:]} o=14 C=1024 (2,32,64) x 2x512 rois')
+        del f, g
+    return kernels
+
+
+def _check_masks(label, model, maps, out, img_hw):
+    """`predict`'s masks finite and in [0, 1]; `paste_masks` on the card
+    equal to the same call on the CPU (integer arithmetic both)."""
+    masks = model.mask_predict(maps, out)
+    if not (torch.isfinite(masks).all() and masks.min() >= 0
+            and masks.max() <= 1):
+        raise RuntimeError(f'{label}: masks not finite or outside [0, 1]')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pasted = paste_masks(masks[0], out['dets'][0, :, :4], *img_hw)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    ref = paste_masks(masks[0].cpu(), out['dets'][0, :, :4].cpu(), *img_hw)
+    if pasted.device.type != 'cuda' or not torch.equal(pasted.cpu(), ref):
+        raise RuntimeError(f'{label}: paste_masks on the card differs from '
+                           'the CPU')
+    log(f'{label}: masks {tuple(masks.shape)} in [{float(masks.min()):.3f}, '
+        f'{float(masks.max()):.3f}]; paste_masks of image 0 on the card '
+        f'{tuple(pasted.shape)} in {ms:.1f} ms, {int(pasted.sum())} pixels '
+        'set, equal to the CPU')
+
+
+def phase_mask_serving(card, kernels):
+    bundle, requests, launches = _serve(card, MASK, 'mask serving',
+                                        MASK_SERVING_LAUNCHES)
+    _set_launches(kernels, FWD_MASK, launches['roi_align_pyramid_fwd'])
+    # the kernel's mask features on the last request's detections
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        batch, _ = prepare_batch(bundle, requests[-1])
+        model = bundle.model
+        out, maps = model._detect(batch)
+        dets = out['dets'][..., :4].contiguous()
+        levels = roi_align.roi_levels(dets, 4)
+        _check(FWD_MASK, fpn_fwd(maps, dets, levels, False, 14),
+               roi_align.batched_roi_align_fpn_plain(maps, dets, out_size=14),
+               TOL_F32, f'on the last request\'s {int(out["valid"].sum())} '
+               f'detections, per level P2..P5 '
+               f'{torch.bincount(levels.flatten().long(), minlength=4).tolist()}')
+        _check_masks('mask serving', model, maps, out,
+                     batch['img_shape'][0].tolist())
+
+
+def mask_batch():
+    """`fpn_level_batch` with seeded box-frame ellipse rasters (112x112)."""
+    batch = fpn_level_batch()
+    b, g = batch['gt_valid'].shape
+    batch['gt_masks'] = torch.from_numpy(ellipse_masks(
+        np.random.RandomState(3), (b, g), MASK_M)).cuda()
+    return batch
+
+
+def mask_kernels_on_sampled_rois(model):
+    """The pair against the plain version on the RoIs that a train step of
+    the trained full-width mask model samples from `mask_batch` (gt boxes
+    on every level): (a) the 14x14 features forward and backward, the
+    backward then timed; (b) the targets on the step's box-frame RoIs.
+    Returns the backward's entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = mask_batch()
+    pyramid, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    levels = roi_align.roi_levels(rois, 4)
+    log(f'mask train: {tuple(rois.shape[:2])} sampled RoIs, per level P2..P5 '
+        f'{_level_counts(levels)}')
+    got = fpn_fwd(pyramid, rois, levels, False, 14)
+    _check(FWD_MASK, got, mask_plain(pyramid, rois), TOL_F32,
+           'on sampled RoIs')
+    grad = torch.randn(got.shape, generator=gen, device='cuda')
+    got = fpn_bwd(grad, rois, levels, [tuple(p.shape) for p in pyramid],
+                  False, 14)
+    worst = max(_check(BWD_MASK_STEP, gg, rr, TOL_F32,
+                       f'on sampled RoIs P{lvl + 2}')
+                for lvl, (gg, rr) in enumerate(zip(
+                    got, _plain_grads(mask_plain, pyramid, rois, grad))))
+    _targets_on_sampled_rois('mask train', batch, sampled, 28)
+    return time_fpn_backward(BWD_MASK_STEP, pyramid, rois, grad, worst, 14,
+                             False, 889)
+
+
+def _targets_on_sampled_rois(label, batch, sampled, out_size):
+    """The mask targets' forward against the plain version on a step's
+    sampled RoIs, in the frames of their matched gts."""
+    rasters, frame = box_frame_crops(batch['gt_masks'], batch['gt_bboxes'],
+                                     sampled.rois, sampled.matched_gt)
+    wide = frame[..., 2:] - frame[..., :2]
+    pos = (sampled.is_pos & sampled.label_valid).flatten()
+    log(f'{label}: mask targets on {frame.shape[0]} box-frame RoIs, '
+        f'{int(pos.sum())} positive; frame coordinates of the positives in '
+        f'[{float(frame[pos].min()):.1f}, {float(frame[pos].max()):.1f}], '
+        f'{int((wide < 1).any(-1).sum())} RoIs under a pixel on an axis')
+    _check(FWD_TARGETS, targets_fwd(rasters, frame, out_size),
+           targets_plain(rasters, frame, out_size), TOL_F32,
+           f'on sampled RoIs o={out_size}')
+
+
+def phase_mask_train(card, kernels):
+    trainer, state, start, times, totals, peak = _train(
+        card, MASK, FPN_STEPS, 'mask train', MASK_STEP_LAUNCHES,
+        demo_batch(mask_size=MASK_M))
+    moved = _moved(trainer.state.params, start, FPN_FROZEN, 'mask train')
+    if not any(n.startswith('mask_head.') for n in start):
+        raise RuntimeError('mask trainer: no mask head')
+    log(_train_summary('mask train', 'Mask R-CNN R50-FPN f32', times, peak,
+                       totals, card)
+        + f'; {moved} parameters moved (mask head included), stem and '
+        'layer1 unchanged')
+    kernels.append(mask_kernels_on_sampled_rois(trainer.model))
+    _set_launches(kernels, BWD_MASK_STEP, totals['roi_align_pyramid_bwd'])
+    _set_launches(kernels, FWD_TARGETS, totals['roi_align_pyramid_fwd'])
+
+
+def phase_c4_serving(card, kernels):
+    bundle, requests, launches = _serve(card, C4, 'c4 serving',
+                                        C4_SERVING_LAUNCHES, C4_SERVING)
+    _set_launches(kernels, FWD_C4, launches['roi_align_pyramid_fwd'])
+    # the kernel's crops of the last request's proposals
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        batch, _ = prepare_batch(bundle, requests[-1])
+        model = bundle.model
+        feat = model.extract_feat(batch['image'])
+        proposals, _, valid = rpn_proposals(
+            *model.rpn_outputs(feat), batch['img_shape'], model.rpn_test_cfg)
+        maps = model.roi_maps(feat)
+        _check(FWD_C4, c4_fwd(maps, proposals), c4_plain(maps, proposals),
+               TOL_F32, f'on the last request\'s {int(valid.sum())} '
+               'proposals')
+        out = model.predict(batch)
+        if not out['valid'].any():
+            raise RuntimeError('c4 serving: no detection reached the masks')
+        _check_masks('c4 serving', model, maps, out,
+                     batch['img_shape'][0].tolist())
+
+
+def c4_kernels_on_sampled_rois(model, batch):
+    """The pair against the plain version on the RoIs that a train step of
+    the trained full-width C4 model samples from its batch: (c) forward and
+    backward at C = 1024, o = 14, the backward then timed; (b) the 14x14
+    targets on the step's box-frame RoIs. Returns the backward's entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    b, h, w, c = feats.shape
+    log(f'c4 train: {tuple(rois.shape[:2])} sampled RoIs on the '
+        f'{tuple(feats.shape)} map')
+    got = c4_fwd(feats, rois)
+    _check(FWD_C4, got, c4_plain(feats, rois), TOL_F32, 'on sampled RoIs')
+    grad = torch.randn(got.shape, generator=gen, device='cuda')
+    shape = tuple(feats.shape)
+    worst = _check(BWD_C4_STEP, c4_bwd(grad, rois, shape),
+                   _plain_grads(c4_plain, [feats], rois, grad)[0], TOL_F32,
+                   'on sampled RoIs')
+    _targets_on_sampled_rois('c4 train', batch, sampled, 14)
+    ms = time_ms(lambda: c4_bwd(grad, rois, shape), 20)
+    plain_ms = plain_backward_ms(lambda fs: c4_plain(fs[0], rois), [feats],
+                                 grad)
+    nbytes, ops = roi_align_work(rois, h, w, c, 14, backward=True)
+    entry = _entry(BWD_C4_STEP, 487, nbytes, ops, max_abs_err=worst, ms=ms,
+                   plain_ms=plain_ms)
+    old, new = atomic_adds(rois, [(h, w)], (16,), c, out_size=14)
+    log(f'kernels: {BWD_C4_STEP} f32 {shape} x {b}x{rois.shape[1]} rois '
+        f'o=14: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}: '
+        f'{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); f32 atomic adds '
+        f'{new / 1e9:.3f} G (one per (RoI, pixel)), {old / 1e9:.3f} G '
+        'nonzero taps')
+    return entry
+
+
+def phase_c4_train(card, kernels):
+    batch = demo_batch(mask_size=MASK_M)
+    trainer, state, start, times, totals, peak = _train(
+        card, C4, COCO_STEPS, 'c4 train', C4_STEP_LAUNCHES, batch)
+    moved = _moved(trainer.state.params, start, FPN_FROZEN, 'c4 train')
+    for head in ('shared_head.', 'mask_head.'):
+        if not any(n.startswith(head) for n in start):
+            raise RuntimeError(f'C4 trainer: no {head[:-1]}')
+    log(_train_summary('c4 train', 'Mask R-CNN R50-C4 f32', times, peak,
+                       totals, card)
+        + f'; {moved} parameters moved (res5 shared head and mask head '
+        'included), stem and layer1 unchanged')
+    kernels.append(c4_kernels_on_sampled_rois(trainer.model, batch))
+    _set_launches(kernels, BWD_C4_STEP, totals['roi_align_pyramid_bwd'])
+
+
+def _tiny_cfg(path, overrides):
+    cfg = Config.fromfile(path)
+    cfg.merge_from_dict(overrides)
+    return cfg
+
+
+def phase_mask_reference():
+    """The tiny Mask R-CNN (configs/da/synth_mask_smoke.py: R18, 256-channel
+    neck, 2 classes) and a tiny R18 Mask R-CNN C4: card vs CPU, inference
+    (detections and masks) and one train step, launching the pair."""
+    for label, path, overrides, seed, hw, anchors, fwd, bwd in (
+            ('tiny Mask R-CNN (R18)', MASK_TINY, FEW_PROPOSALS,
+             MASK_TINY_SEED, (100, 150),
+             3 * sum(-(-128 // st) * -(-192 // st)
+                     for st in (4, 8, 16, 32, 64)), 7, 2),
+            ('tiny Mask R-CNN C4 (R18)', C4, dict(C4_TINY, **FEW_PROPOSALS),
+             C4_TINY_SEED, (100, 150), 15 * 8 * 12, 6, 1)):
+        before = FWD.launches, BWD.launches
+        phase_reference(_tiny_cfg(path, overrides), label, hw, seed)
+        phase_reference_train(_tiny_cfg(path, overrides), label, (128, 192),
+                              anchors, 32, seed, mask_size=MASK_M)
+        got = (FWD.launches - before[0], BWD.launches - before[1])
+        if got != (fwd, bwd):
+            raise RuntimeError(f'{label} on the card launched the pair '
+                               f'{got} times, expected {(fwd, bwd)}')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1023,6 +1540,12 @@ def main():
     phase_reference()
     phase_reference_train()
     phase_fpn_reference()
+    kernels += phase_mask_kernels()
+    phase_mask_serving(card, kernels)
+    phase_mask_train(card, kernels)
+    phase_c4_serving(card, kernels)
+    phase_c4_train(card, kernels)
+    phase_mask_reference()
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -353,3 +353,125 @@ def test_roi_align_bwd_kernel_under_contention(cuda, dtype, tol):
     rois = boxes[rs.randint(0, 4, (2, 512))] +         rs.uniform(-4, 4, (2, 512, 4)).astype(np.float32)
     errs = _both_ways(feats, torch.from_numpy(rois).to(cuda), 1 / 16, 7, 2)
     assert max(errs) <= tol
+
+
+# ---- the mask slice's regimes ---------------------------------------------
+
+def _frame_rois(rs, n, m):
+    """n RoIs in an m-sized box frame, one per raster, as a train step's
+    positives map there (coordinates about [-m, 2m]): inside the raster,
+    across its border and far beyond it, some under one pixel, and a zero
+    one."""
+    lo = rs.uniform(-1.0, 1.2, (n, 2)) * m
+    size = np.exp(rs.uniform(np.log(0.2), np.log(1.6 * m), (n, 2)))
+    rois = np.concatenate([lo, lo + size], -1)
+    rois[:5] = [[0, 0, 0, 0], [0, 0, m, m], [-m, -m, 2 * m, 2 * m],
+                [1.1 * m, 1.2 * m, 1.9 * m, 1.95 * m],
+                [40.3, 50.1, 40.6, 50.5]]
+    return rois[:, None].astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('out_size', [28, 14])
+def test_roi_align_kernels_on_mask_target_rasters(cuda, dtype, tol,
+                                                  out_size):
+    """The mask targets' regime: 1024 single-RoI 112x112 rasters, C = 1,
+    scale 1, the legacy aligned=False geometry (min size 1), RoIs from
+    inside the raster to far beyond it and under a pixel."""
+    rs = np.random.RandomState(6)
+    m = 112
+    yy, xx = np.mgrid[:m, :m] + 0.5
+    c = rs.uniform(0.3, 0.7, (1024, 2, 1, 1)) * m
+    r = rs.uniform(0.2, 0.5, (1024, 2, 1, 1)) * m
+    rasters = ((((xx - c[:, 0]) / r[:, 0]) ** 2 +
+                ((yy - c[:, 1]) / r[:, 1]) ** 2) <= 1).astype(np.float32)
+    feats = torch.from_numpy(rasters[..., None]).to(cuda, dtype)
+    rois = torch.from_numpy(_frame_rois(rs, 1024, m)).to(cuda)
+    errs = _both_ways(feats, rois, 1.0, out_size, 2, aligned=False,
+                      flatten=False)
+    assert max(errs) <= tol
+
+
+@pytest.mark.cuda
+def test_mask_targets_launch_one_forward_and_match_the_cpu(cuda):
+    """`mask_targets_from_box_frame` on the card: one forward launch, no
+    backward, and the CPU's plain targets within 1e-5."""
+    from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.roi_heads import \
+        mask_head
+    rs = np.random.RandomState(7)
+    masks = (rs.uniform(0, 1, (2, 4, 112, 112)) > 0.5).astype(np.uint8)
+    xy = rs.uniform(0, 300, (2, 4, 2))
+    gt = np.concatenate([xy, xy + rs.uniform(4, 200, (2, 4, 2))], -1)
+    rois = np.concatenate([xy[:, [0, 1, 2, 3] * 8] - 30,
+                           xy[:, [0, 1, 2, 3] * 8] + 150], -1)
+    rois += rs.uniform(-20, 20, rois.shape)
+    matched = np.tile(np.arange(4), 8)[None].repeat(2, 0)
+    args = [torch.from_numpy(a) for a in (
+        masks, gt.astype(np.float32), rois.astype(np.float32),
+        matched.astype(np.int64))]
+    fwd = ra.roi_align_pyramid_cuda.launches
+    bwd = ra.roi_align_pyramid_bwd_cuda.launches
+    got = mask_head.mask_targets_from_box_frame(*[a.to(cuda) for a in args])
+    assert ra.roi_align_pyramid_cuda.launches == fwd + 1
+    assert ra.roi_align_pyramid_bwd_cuda.launches == bwd
+    ref = mask_head.mask_targets_from_box_frame(*args)
+    assert got.shape == ref.shape == (2, 32, 28, 28)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_roi_align_kernels_on_mask_features(cuda, dtype, tol):
+    """The FPN mask features' regime: 14x14, (B, R, o, o, C) with C = 256,
+    four levels, forward and backward."""
+    feats, rois = _pyramid(cuda, dtype, c=256)
+    levels = ra.roi_levels(rois, 4)
+    got = ra.roi_align_pyramid_cuda(feats, rois, levels, SCALES, 14)
+    fs = [f.detach().clone().requires_grad_() for f in feats]
+    ref = ra.batched_roi_align_fpn_plain(fs, rois, out_size=14)
+    _close(got, ref.detach(), tol)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cot = torch.randn(ref.shape, generator=gen, device=cuda).to(dtype)
+    grads = ra.roi_align_pyramid_bwd_cuda(cot, rois, levels,
+                                          [f.shape for f in feats], SCALES,
+                                          14)
+    for g, r in zip(grads, torch.autograd.grad(ref, fs, cot)):
+        _close(g, r, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_roi_align_kernels_on_c4_crops(cuda, dtype, tol):
+    """C4's regime: one level at stride 16, 14x14 crops (B, R, o, o, C) of
+    C = 1024, forward and backward."""
+    feats, rois = _data(cuda, dtype, h=12, w=20, c=1024, n=40)
+    errs = _both_ways(feats, rois, 1 / 16, 14, 2, flatten=False)
+    assert max(errs) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('aligned', [True, False])
+def test_roi_align_kernels_on_zero_area_rois(cuda, dtype, tol, aligned):
+    """Zero-area RoIs, as `predict` hands the mask branch its padded
+    detections: every sample of a bin falls on one point (aligned), or the
+    min-size-1 box (legacy); at one level and on four (they fall on P2)."""
+    feats, rois = _data(cuda, dtype, c=40)
+    pts = rois[..., :2].clone()
+    rois = torch.cat([pts, pts], -1)
+    rois[:, :4] = 0
+    errs = _both_ways(feats, rois, 1 / 16, 14, 2, aligned=aligned,
+                      flatten=False)
+    assert max(errs) <= tol
+    pyr, _ = _pyramid(cuda, dtype, c=40)
+    levels = ra.roi_levels(rois, 4)
+    assert int(levels.max()) == 0
+    got = ra.roi_align_pyramid_cuda(pyr, rois, levels, SCALES, 14,
+                                    aligned=aligned)
+    _close(got, ra.batched_roi_align_fpn_plain(pyr, rois, out_size=14,
+                                               aligned=aligned), tol)

@@ -186,10 +186,13 @@ class Pad:
 @PIPELINES.register_module()
 class PackDetInputs:
     """Terminal stage: the image plus fixed-size meta and gt blocks
-    (gts padded to `max_gt` with a validity mask)."""
+    (gts padded to `max_gt` with a validity mask). `with_mask` adds
+    `gt_masks` (max_gt, M, M) uint8, each gt's box-frame raster (M from
+    the results' `gt_masks`, 112 without any), zero-padded."""
 
-    def __init__(self, max_gt: int = 100):
+    def __init__(self, max_gt: int = 100, with_mask: bool = False):
         self.max_gt = max_gt
+        self.with_mask = with_mask
 
     def __call__(self, results):
         n = min(len(results.get('gt_labels', [])), self.max_gt)
@@ -200,6 +203,14 @@ class PackDetInputs:
             gt_bboxes[:n] = results['gt_bboxes'][:n]
             gt_labels[:n] = results['gt_labels'][:n]
             gt_valid[:n] = True
+        extra = {}
+        if self.with_mask:
+            m = results.get('gt_masks')
+            msize = m.shape[-1] if m is not None and m.size else 112
+            packed = np.zeros((self.max_gt, msize, msize), np.uint8)
+            if m is not None and n:
+                packed[:n] = m[:n]
+            extra['gt_masks'] = packed
         return dict(
             image=results['img'].float(),
             img_shape=np.asarray(results['img_shape'], np.int32),
@@ -211,6 +222,7 @@ class PackDetInputs:
             gt_labels=gt_labels,
             gt_valid=gt_valid,
             domain=np.asarray(results.get('domain', 0), np.int32),
+            **extra,
         )
 
 

@@ -19,7 +19,7 @@ from ..utils.device import resolve_device
 from ..utils.registry import DETECTORS
 from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
 from .detectors import (da_faster_rcnn, faster_rcnn,  # noqa: F401 (register)
-                        faster_rcnn_fpn)
+                        faster_rcnn_fpn, mask_rcnn, mask_rcnn_c4)
 from .detectors.faster_rcnn import AnchorConfig
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
 
@@ -27,6 +27,8 @@ from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
 _REFERENCE_DETECTOR_MAP = {
     'FasterRCNN': ('FasterRCNN', {}),
     'FasterRCNNFPN': ('FasterRCNNFPN', {}),
+    'MaskRCNN': ('MaskRCNN', {}),
+    'MaskRCNNC4': ('MaskRCNNC4', {}),
     'DAFasterRCNN': ('DAFasterRCNN', dict(variant='daf',
                                           instance_mode='grouped')),
     'DAFasterRCNN_Org': ('DAFasterRCNN', dict(variant='daf_org',
@@ -144,7 +146,10 @@ def _flat_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
     if str(dtype).replace('torch.', '') != 'float32':
         raise NotImplementedError(f'dtype {dtype!r}: only the float32 '
                                   'compute path is ported')
-    params = inspect.signature(cls.__init__).parameters
+    params = {}                       # a subclass's **kwargs reach its bases
+    for klass in reversed(cls.__mro__):
+        if '__init__' in vars(klass):
+            params.update(inspect.signature(klass.__init__).parameters)
     for name, value in kwargs.items():
         default = params[name].default if name in params else None
         if isinstance(value, dict) and hasattr(default, '_fields'):

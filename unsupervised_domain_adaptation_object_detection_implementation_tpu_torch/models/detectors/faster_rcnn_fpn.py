@@ -130,11 +130,13 @@ class FasterRCNNFPN(nn.Module):
                      for f in feats[:len(ROI_STRIDES)])
 
     @staticmethod
-    def roi_extract(feats_nhwc: Sequence[torch.Tensor], rois: torch.Tensor
-                    ) -> torch.Tensor:
-        """Multi-level RoIAlign, 7x7, flat x-major for the Shared2FC head."""
+    def roi_extract(feats_nhwc: Sequence[torch.Tensor], rois: torch.Tensor,
+                    out_size: int = 7, flatten: bool = True) -> torch.Tensor:
+        """Multi-level RoIAlign: 7x7 flat x-major for the Shared2FC head by
+        default; (B, R, o, o, C) with `flatten=False` (the mask branch's
+        14x14)."""
         return extract_roi_feats_fpn(feats_nhwc, rois, ROI_STRIDES,
-                                     flatten=True)
+                                     out_size=out_size, flatten=flatten)
 
     def loss(self, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -142,6 +144,11 @@ class FasterRCNNFPN(nn.Module):
              ) -> Dict[str, torch.Tensor]:
         """RPN and RoI losses. Proposals come from the detached RPN outputs.
         Each stage is a `step/...` profiler range."""
+        return self._det_losses(batch, generator, sampler_priorities)[0]
+
+    def _det_losses(self, batch, generator, sampler_priorities):
+        """`loss`'s RPN and box losses; returns (losses, sampled RoIs, the
+        RoI extractor's NHWC levels)."""
         pri = sampler_priorities or {}
         with record_function('step/trunk_and_neck'):
             feats = self.extract_feat(batch['image'].float())
@@ -162,30 +169,36 @@ class FasterRCNNFPN(nn.Module):
                     batch['gt_labels'], batch['gt_valid'], self.num_classes,
                     self.roi_train_cfg, priorities=pri.get('rcnn'),
                     generator=generator)
+        maps = self.roi_maps(feats)
         with record_function('step/roi_align_fwd'):
-            roi_feats = self.roi_extract(self.roi_maps(feats), sampled.rois)
+            roi_feats = self.roi_extract(maps, sampled.rois)
         with record_function('step/bbox_head_and_loss'):
             cls_s, reg_s, _ = self.bbox_head(roi_feats)
             losses.update(bbox_loss(cls_s, reg_s, sampled, self.num_classes,
                                     self.roi_train_cfg))
-        return losses
+        return losses, sampled, maps
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         """simple_test flow: RPN proposals over all levels → multi-level
         RoI head → per-class NMS."""
+        return self._detect(batch)[0]
+
+    def _detect(self, batch):
+        """`predict`'s detections and the RoI extractor's NHWC levels."""
         feats = self.extract_feat(batch['image'].float())
         cls, reg, anchors = self.rpn_outputs(feats)
         proposals, _, prop_valid = rpn_proposals(
             cls, reg, anchors, batch['img_shape'], self.rpn_test_cfg)
+        maps = self.roi_maps(feats)
         return roi_head_predict(
-            self.bbox_head, self.roi_maps(feats), proposals,
+            self.bbox_head, maps, proposals,
             prop_valid, batch['img_shape'], self.num_classes,
             reg_class_agnostic=False,
             target_stds=self.roi_train_cfg.target_stds,
             use_sigmoid_cls=self.roi_train_cfg.use_sigmoid_cls,
-            cfg=self.roi_test_cfg, roi_extractor=self.roi_extract)
+            cfg=self.roi_test_cfg, roi_extractor=self.roi_extract), maps
 
     def forward(self, batch: Dict[str, torch.Tensor], train: bool = True,
                 generator: Optional[torch.Generator] = None,

@@ -8,8 +8,10 @@ import torch
 from torch import nn
 
 from .dense_heads.rpn_head import RPNHead
+from .detectors.mask_rcnn_c4 import C4BBoxHead
 from .layers.norm import BatchNorm, FrozenBatchNorm
 from .roi_heads.bbox_head import Shared2FCBBoxHead
+from .roi_heads.mask_head import FCNMaskHead
 
 
 @torch.no_grad()
@@ -19,12 +21,14 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
     (flax's lecun_normal scale, which keeps activations of order one through
     a frozen-BN ResNet), biases 0, frozen and live BN (the DA heads') as
     the identity (scale 1, bias 0, mean 0, var 1); then the RPN's convs
-    ~ N(0, 0.01²) and the box head's classifier ~ N(0, 0.01²) and regressor
-    ~ N(0, 0.001²), as the reference (mmdet's `RPNHead` and `BBoxHead`)
-    initialises them. At the lecun scale those heads start with logits and
-    box deltas of order one, and the FPN config's full lr (0.01, no clip)
-    then diverges within three steps. `generator` lives on the model's
-    device."""
+    ~ N(0, 0.01²) and the box heads' (Shared2FC, and C4's pooled one)
+    classifier ~ N(0, 0.01²) and regressor ~ N(0, 0.001²), as the reference
+    (mmdet's `RPNHead` and `BBoxHead`) initialises them. At the lecun scale
+    those heads start with logits and box deltas of order one, and the FPN
+    config's full lr (0.01, no clip) then diverges within three steps. The
+    mask heads keep the lecun scale, as in the JAX package (the normed
+    predictor's raw kernel too, over its input channels). `generator`
+    lives on the model's device."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -37,11 +41,14 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
             m.bias.zero_()
             m.mean.zero_()
             m.var.fill_(1.0)
+        elif isinstance(m, FCNMaskHead) and m.normed_predictor:
+            k = m.conv_logits_kernel
+            k.normal_(0.0, 1.0 / math.sqrt(k.shape[0]), generator=generator)
     for m in model.modules():
         if isinstance(m, RPNHead):
             layers = [(c, 0.01) for c in m.modules()
                       if isinstance(c, nn.Conv2d)]
-        elif isinstance(m, Shared2FCBBoxHead):
+        elif isinstance(m, (Shared2FCBBoxHead, C4BBoxHead)):
             layers = [(m.fc_cls, 0.01), (m.fc_reg, 0.001)]
         else:
             continue

@@ -9,9 +9,11 @@ seeded 1024x2048 images, and reports:
 
 - per-stage times on the host clock, each stage ending in a synchronize:
   preprocess (pipeline on the card), trunk (with the FPN neck for the FPN
-  detector), RPN head (over every level), proposals (top-k, decode, NMS),
-  RoI head (RoIAlign + Shared2FC + decode + multiclass NMS), and inside the
-  RoI head RoIAlign and Shared2FC alone;
+  detectors), RPN head (over every level), proposals (top-k, decode, NMS),
+  RoI head (RoIAlign + box head + decode + multiclass NMS; C4's box head
+  runs res5 first), for the Mask R-CNN detectors the mask branch on the
+  detections (RoIAlign, mask head, own-class sigmoid), and inside the RoI
+  head RoIAlign and the box head alone;
 - the whole `inference_detector` call per request, and the same request
   split into pipeline, `predict`, and copy-back with per-class packing;
 - a `torch.profiler` trace of whole requests: device busy time (sum of
@@ -39,12 +41,17 @@ from ..models.dense_heads.rpn_head import rpn_proposals
 from ..models.roi_heads.standard_roi_head import roi_head_predict
 
 
-def _stages(model, image):
+def _stages(model, image, results=None):
     """The detector's serving stages as (name, fn) pairs; each fn takes the
     previous stage's output. Every detector splits alike through the
-    surface they share (`rpn_outputs`, `roi_maps`, `roi_extract`): trunk
-    (with the neck), RPN head, proposals, RoI head."""
+    surface they share (`rpn_outputs`, `roi_maps`, `roi_extract`, and
+    `roi_box_head` where the box head is more than `bbox_head`): trunk (with
+    the neck), RPN head, proposals, RoI head, and `mask_predict` where the
+    detector has a mask head. `results`, where given, receives the RoI
+    head's detections and the mask branch's `masks`."""
     img_shape = image['img_shape']
+    head = getattr(model, 'roi_box_head', model.bbox_head)
+    dets = {} if results is None else results
 
     def proposals(out):
         feats, cls, reg, anchors = out
@@ -54,23 +61,28 @@ def _stages(model, image):
 
     def roi_head(out):
         feats, props, valid = out
-        roi_head_predict(
-            model.bbox_head, feats, props, valid, img_shape,
-            model.num_classes,
+        dets.update(roi_head_predict(
+            head, feats, props, valid, img_shape, model.num_classes,
             target_stds=model.roi_train_cfg.target_stds,
             use_sigmoid_cls=model.roi_train_cfg.use_sigmoid_cls,
-            cfg=model.roi_test_cfg, roi_extractor=model.roi_extract)
+            cfg=model.roi_test_cfg, roi_extractor=model.roi_extract))
+        return out
+
+    def mask_branch(out):
+        dets['masks'] = model.mask_predict(out[0], dets)
         return out
 
     def roi_align(out):
         feats, props, _ = out
         return model.roi_extract(feats, props)
 
-    return [('trunk', lambda _: model.extract_feat(image['image'])),
-            ('rpn_head', lambda feats: (feats, *model.rpn_outputs(feats))),
-            ('proposals', proposals), ('roi_head', roi_head),
-            ('roi_head.roi_align', roi_align),
-            ('roi_head.bbox_head', model.bbox_head)]
+    stages = [('trunk', lambda _: model.extract_feat(image['image'])),
+              ('rpn_head', lambda feats: (feats, *model.rpn_outputs(feats))),
+              ('proposals', proposals), ('roi_head', roi_head)]
+    if hasattr(model, 'mask_head'):
+        stages.append(('mask_branch', mask_branch))
+    return stages + [('roi_head.roi_align', roi_align),
+                     ('roi_head.bbox_head', head)]
 
 
 def _stage_times(bundle, imgs):

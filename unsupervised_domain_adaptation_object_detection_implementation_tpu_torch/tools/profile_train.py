@@ -7,8 +7,10 @@
 Builds the trainer with seeded random weights (past the lr warmup, as
 `chip_smoke.py` runs it) and a seeded batch of one source and one target
 image of 512x1024 (the domains matter to the DA detectors only; the FPN
-config, configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py, trains on
-both images), and reports:
+and Mask R-CNN configs, configs/cityscapes/*_r50_fpn_1x_cityscapes.py and
+configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x.py, train on both images; a
+detector with a mask head also gets seeded 112x112 box-frame rasters),
+and reports:
 
 - the whole `trainer.step` on the host clock, ending in a synchronize, and
   the process's CPU time in it, over all its threads (autograd runs the
@@ -17,7 +19,8 @@ both images), and reports:
 - a `torch.profiler` trace of whole steps, read per stage from the
   `step/...` ranges that the step itself opens (trunk with the GRL heads,
   or trunk and FPN neck; RPN head and loss, proposals, RoI sampling,
-  RoIAlign, Shared2FC and box loss, DA losses, backward, SGD with the guard
+  RoIAlign, C4's res5 head, box head and loss, the mask branch's RoIAlign,
+  targets and head with its loss, DA losses, backward, SGD with the guard
   and the EMA): each
   stage's host time (the profiler roughly doubles it), and the device
   time of the work launched while it was open; then the device busy time
@@ -48,13 +51,17 @@ PROFILED_STEPS = 3
 # the loader's length (Cityscapes: 2975 steps of one source and one target
 # image); it only places the lr milestones, far beyond the profiled steps
 STEPS_PER_EPOCH = 2975
+# box-frame raster size of the mask detectors' batch (`LoadAnnotations`'
+# default mask_size)
+MASK_SIZE = 112
 
 
 def demo_batch(b=2, h=512, w=1024, g=16, num_classes=8, seed=0,
-               device='cuda'):
+               device='cuda', mask_size=None):
     """The JAX package's `__graft_entry__._demo_batch` in numpy, on
     `device`: random normal images, `g` gt slots of which the first 4 are
-    valid, domains alternating source, target."""
+    valid, domains alternating source, target. With `mask_size` M, also
+    `gt_masks` (b, g, M, M): seeded box-frame ellipses (`ellipse_masks`)."""
     rng = np.random.RandomState(seed)
     boxes = rng.uniform(0, min(h, w) // 2, (b, g, 4)).astype(np.float32)
     boxes[..., 2:] += boxes[..., :2] + 8
@@ -65,7 +72,23 @@ def demo_batch(b=2, h=512, w=1024, g=16, num_classes=8, seed=0,
         gt_labels=rng.randint(0, num_classes, (b, g)).astype(np.int32),
         gt_valid=np.arange(g)[None, :] < 4 + np.zeros((b, 1)),
         domain=np.array([i % 2 for i in range(b)], np.int32))
+    if mask_size:
+        batch['gt_masks'] = ellipse_masks(np.random.RandomState(seed + 1),
+                                          (b, g), mask_size)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def ellipse_masks(rng, shape, m):
+    """(*shape, m, m) uint8 box-frame rasters: one filled ellipse each, its
+    centre in the middle 40% of the frame and its semi-axes 20–50% of it,
+    so the targets vary across RoIs and within each."""
+    c = rng.uniform(0.3, 0.7, shape + (2,)) * m
+    r = rng.uniform(0.2, 0.5, shape + (2,)) * m
+    px = np.arange(m) + 0.5
+    dx = (px - c[..., 0, None]) / r[..., 0, None]
+    dy = (px - c[..., 1, None]) / r[..., 1, None]
+    return (dy[..., :, None] ** 2 + dx[..., None, :] ** 2 <= 1).astype(
+        np.uint8)
 
 
 def stage_split(prof, steps):
@@ -127,7 +150,9 @@ def main(argv=None):
     state = state._replace(opt_state=state.opt_state._replace(count=500))
     batch = demo_batch(h=args.size[0], w=args.size[1],
                        num_classes=trainer.model.num_classes, seed=args.seed,
-                       device=args.device)
+                       device=args.device,
+                       mask_size=MASK_SIZE if hasattr(trainer.model,
+                                                      'mask_head') else None)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     for _ in range(2):                                       # warm-up
         state, _ = trainer.step(state, batch, gen)

@@ -9,7 +9,9 @@
   permutation is needed;
 - `bias` → `bias`; BatchNorm `scale`/`bias` (params) and `mean`/`var`
   (batch_stats) keep their names, for the trunk's frozen BN and the DA
-  heads' live BN alike.
+  heads' live BN alike;
+- the normed mask predictor's `conv_logits_kernel` (C, K), a raw
+  parameter, keeps its name and layout.
 
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
@@ -47,7 +49,7 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], leaf: Any
             return f'{prefix}weight', value.transpose(3, 2, 0, 1)
         if name == 'kernel' and value.ndim == 2:
             return f'{prefix}weight', value.T
-        if name in ('bias', 'scale'):
+        if name in ('bias', 'scale', 'conv_logits_kernel'):
             return prefix + name, value
     elif collection == 'batch_stats' and name in ('mean', 'var'):
         return prefix + name, value
