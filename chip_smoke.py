@@ -92,13 +92,39 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    R18, 2 classes, 128x192) and a tiny R18 Mask R-CNN C4: card vs CPU,
    inference (detections within 1e-3, masks within 1e-4) and one train
    step (losses 1e-4 relative, parameters 1e-4 of scale).
+15. loop — the port's command line `tools.DA_train` (through its
+   `main(argv)`) on configs/da/faster_rcnn_r18_synth_shapes.py (R18-DC5,
+   DAF with every DA loss, grad clip 35, EMA 0.9995, NaN guard, batch 8 of
+   4 source + 4 target, 128x192 canvas, lr 0.005), its data paths
+   redirected to the committed synth subset (tests/data/synth_da_small:
+   16 + 16 training images, 8 test), 2 epochs of 4 steps, eval and a
+   checkpoint each epoch, in build/loop/ (emptied first). Every step must
+   launch the pair's forward and backward once and every eval batch the
+   forward once; every logged loss is finite, train and val records are
+   in train_log.jsonl and AP50 is a finite number in [0, 1]. A second call
+   resumes from ckpt_1: the restored params, buffers, momentum, EMA and
+   step must equal what the first call saved, bit for bit. Then
+   `init_detector(checkpoint=build/loop/ckpt_2)` serves the test split
+   from its JPEG paths (equal to serving the decoded arrays), and a loader
+   batch built on the card must equal the one built on the CPU, exactly.
+   Timed: decode ms an image (the subset's 192x128 JPEGs, and one
+   2048x1024 JPEG, tests/data/jpeg_2048x1024, at Cityscapes size), loader
+   ms a batch, step ms (8 steps on loader batches made beforehand, and 16
+   fed by the loader as the loop runs them, in epochs with the prefetch
+   thread and without it, alternating; each launching the pair once),
+   eval ms an image, checkpoint save and load ms; the pair held to the
+   plain version and timed on a loop step's RoIs (bwd) and an eval batch's
+   proposals (fwd). build/loop/ is emptied once the phase's checks pass.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
+import glob
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -108,6 +134,14 @@ import torch
 
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis import (
     inference_detector, init_detector, init_trainer, prepare_batch)
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis import \
+    train as train_api
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis.test import \
+    evaluate_dataset
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data import (
+    DataLoader, build_dataset)
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data.pipelines.jpeg import \
+    decode_jpeg
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.dense_heads.rpn_head import \
     rpn_proposals
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors.mask_rcnn import \
@@ -120,8 +154,12 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     sample_rois
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ops import (
     cuda_build, roi_align)
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
+    DA_train
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train import (
     demo_batch, ellipse_masks)
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.utils import \
+    checkpoint as ckpt_io
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.utils.config import \
     Config
 
@@ -1529,6 +1567,364 @@ def phase_mask_reference():
                                f'{got} times, expected {(fwd, bwd)}')
 
 
+# ---- the loop: train, evaluate, checkpoint, resume and serve ---------------
+
+SYNTH = 'configs/da/faster_rcnn_r18_synth_shapes.py'
+SYNTH_DATA = 'tests/data/synth_da_small'
+CITYSCAPES_SIZE_JPEG = 'tests/data/jpeg_2048x1024/synth_clear.jpg'
+LOOP_DIR = 'build/loop'
+FWD_LOOP, BWD_LOOP = ('roi_align_pyramid_fwd/synth_loop',
+                      'roi_align_pyramid_bwd/synth_loop')
+# the published gate-3 config with only its data redirected: each split's
+# ann_file and img_prefix (the config builds them from data_root when it
+# loads, so data_root alone would change nothing); 2 short epochs, eval and
+# a checkpoint after each
+LOOP_OPTIONS = [
+    f'{key}.{field}={SYNTH_DATA}/{sub}/' + (
+        f'ImageSets/Main/{split}.txt' if field == 'ann_file' else '')
+    for key, sub, split in (('data.train.datasets.0', 'shapes_clear', 'train'),
+                            ('data.train.datasets.1', 'shapes_foggy', 'train'),
+                            ('data.val', 'shapes_foggy', 'test'),
+                            ('data.test', 'shapes_foggy', 'test'))
+    for field in ('ann_file', 'img_prefix')] + [
+    'runner.max_epochs=2', 'evaluation.interval=1',
+    'checkpoint_config.interval=1']
+
+
+def _loop_cfg():
+    args = DA_train.parse_args([SYNTH, '--cfg-options', *LOOP_OPTIONS])
+    return DA_train.load_config(args)
+
+
+def _run_cli(argv, steps, eval_batches):
+    """`DA_train.main(argv)` with the launch counters set to 0 just before;
+    raises unless the run launched the forward once a step and once an
+    eval batch, and the backward once a step. Returns (metrics, forward
+    launches, backward launches, seconds)."""
+    FWD.launches = BWD.launches = 0
+    t0 = time.perf_counter()
+    metrics = DA_train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fwd, bwd = FWD.launches, BWD.launches
+    if (fwd, bwd) != (steps + eval_batches, steps):
+        raise RuntimeError(f'loop: {fwd} forward / {bwd} backward launches '
+                           f'for {steps} steps and {eval_batches} eval '
+                           'batches')
+    return metrics, fwd, bwd, seconds
+
+
+def _check_log(path, epochs):
+    """The train log's records: finite losses at every epoch's end, a val
+    record per epoch with AP50 in [0, 1]. Returns the records."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r['mode'] == 'train']
+    val = [r for r in recs if r['mode'] == 'val']
+    if [r['epoch'] for r in train] != epochs or \
+            [r['epoch'] for r in val] != epochs:
+        raise RuntimeError(f'loop: train/val records for epochs '
+                           f'{[r["epoch"] for r in train]} / '
+                           f'{[r["epoch"] for r in val]}, expected {epochs}')
+    for r in train:
+        losses = {k: v for k, v in r.items() if k.startswith('loss')
+                  or k.endswith('_loss')}
+        if len(losses) < 5 or not all(math.isfinite(v)
+                                      for v in losses.values()):
+            raise RuntimeError(f'loop: losses {losses}')
+    for r in val:
+        if not (math.isfinite(r['AP50']) and 0.0 <= r['AP50'] <= 1.0):
+            raise RuntimeError(f'loop: AP50 {r["AP50"]}')
+    return recs
+
+
+def _same_payload(got, ref, what):
+    """Raise unless two checkpoint payloads are equal, bit for bit."""
+    for key in ('step', 'opt_count'):
+        if got[key] != ref[key]:
+            raise RuntimeError(f'{what}: {key} {got[key]} != {ref[key]}')
+    for key in ('params', 'buffers', 'momentum', 'ema_params'):
+        if set(got[key]) != set(ref[key]):
+            raise RuntimeError(f'{what}: {key} names differ')
+        for n, v in ref[key].items():
+            if not torch.equal(got[key][n].to(v.device), v):
+                raise RuntimeError(f'{what}: {key}.{n} differs')
+
+
+def _time_loader(cfg, card):
+    """Decode ms an image (host) of the subset and of one 2048x1024 JPEG,
+    then a loader epoch built on the card (no prefetch: each batch timed
+    from its request to a synchronize) and the same epoch built on the CPU,
+    which must equal it exactly. Returns (decode ms, loader ms per batch,
+    the card's batches)."""
+    paths = sorted(glob.glob(f'{SYNTH_DATA}/*/JPEGImages/*.jpg'))
+    t0 = time.perf_counter()
+    for p in paths:
+        decode_jpeg(p)
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    big_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        big = decode_jpeg(CITYSCAPES_SIZE_JPEG)
+        big_ms.append(1e3 * (time.perf_counter() - t0))
+    if big.shape != (1024, 2048, 3) or big.dtype != np.uint8:
+        raise RuntimeError(f'loop: decoded {CITYSCAPES_SIZE_JPEG} as '
+                           f'{big.shape} {big.dtype}')
+    log(f'loop: decode one 2048x1024 JPEG '
+        f'({os.path.getsize(CITYSCAPES_SIZE_JPEG)} bytes): '
+        f'{[round(t, 3) for t in big_ms]} ms (host) [{card}]')
+    batches, times = [], []
+    loaders = [DataLoader(build_dataset(cfg.data['train'], d), 8, seed=0,
+                          prefetch=0) for d in ('cuda', 'cpu')]
+    made = iter(loaders[0])
+    for _ in range(len(loaders[0])):
+        t0 = time.perf_counter()
+        batches.append(next(made))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    for got, ref in zip(batches, loaders[1]):
+        for k, v in ref.items():
+            if got[k].device.type != 'cuda' or not torch.equal(got[k].cpu(),
+                                                               v):
+                raise RuntimeError(f'loop: loader {k} on the card differs '
+                                   'from the CPU')
+    log(f'loop: decode {len(paths)} JPEGs 192x128: {decode_ms:.3f} ms an '
+        f'image (host) [{card}]')
+    log(f'loop: loader batches of 8 on the card {[round(t, 2) for t in times]}'
+        f' ms, mean {np.mean(times):.3f} ms a batch; {len(batches)} batches '
+        'equal to the CPU-built ones (image, boxes, labels, flips, domain) '
+        f'[{card}]')
+    return decode_ms, float(np.mean(times)), batches
+
+
+def _time_steps(cfg, batches):
+    """8 train steps (2 epochs of the card-built batches) of a fresh
+    trainer of the loop's config, each launching the pair's forward and
+    backward once. Returns (step ms, trainer, state)."""
+    trainer = init_trainer(cfg, device='cuda', seed=0,
+                           steps_per_epoch=len(batches))
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    state, times = trainer.state, []
+    for i, batch in enumerate(batches * 2):
+        FWD.launches = BWD.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = trainer.step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if (FWD.launches, BWD.launches) != (1, 1):
+            raise RuntimeError(f'loop step {i}: launches {FWD.launches} / '
+                               f'{BWD.launches}')
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise RuntimeError(f'loop step {i}: {metrics}')
+    return times, trainer, state
+
+
+def eval_proposals(model, dataset):
+    """The RPN's proposals on the first eval batch of `dataset` and the
+    map RoIAlign reads them from, as `predict` makes them."""
+    with torch.no_grad():
+        batch = next(iter(DataLoader(dataset, 8, shuffle=False,
+                                     two_stream=False, drop_last=False,
+                                     prefetch=0)))
+        feat = model.extract_feat(batch['image'])
+        proposals, _, _ = rpn_proposals(*model.rpn_outputs(feat),
+                                        batch['img_shape'],
+                                        model.rpn_test_cfg)
+        return model.roi_maps(feat), proposals.contiguous()
+
+
+def _time_fed_steps(cfg, trainer, state):
+    """Epochs as the loop runs them: each step waits for its batch from
+    the loader, then runs; each launching the pair once. Epochs alternate
+    between a loader with the prefetch thread (depth 2: one thread decoding
+    on the host and preparing on the card) and one without it (each batch
+    made when it is asked for), in the order 2, 0, 0, 2. Returns {prefetch:
+    [(epoch ms, [ms from one step's end to the next's])]}."""
+    loaders = {p: DataLoader(build_dataset(cfg.data['train'], 'cuda'), 8,
+                             seed=0, prefetch=p) for p in (2, 0)}
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    out = {2: [], 0: []}
+    FWD.launches = BWD.launches = 0
+    for p in (2, 0, 0, 2):
+        times = []
+        start = t0 = time.perf_counter()
+        for batch in loaders[p]:
+            state, _ = trainer.step(state, batch, gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            times.append(1e3 * (t1 - t0))
+            t0 = t1
+        out[p].append((1e3 * (t0 - start), times))
+    steps = sum(len(t) for runs in out.values() for _, t in runs)
+    if (FWD.launches, BWD.launches) != (steps, steps):
+        raise RuntimeError(f'loop fed steps: launches {FWD.launches} / '
+                           f'{BWD.launches} for {steps} steps')
+    return out
+
+
+def loop_kernels(maps, proposals, model, batch):
+    """The pair against the plain version in the loop's regime (R18-DC5,
+    C=512, 8x12 map, 8 images): forward on an eval batch's proposals
+    (timed), forward and backward on the RoIs a loop step of `model`
+    samples from `batch` (backward timed). Returns the two entries."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, c = maps.shape
+    worst = _check(FWD_LOOP, dc5_fwd(maps, proposals),
+                   roi_align.batched_roi_align_plain(
+                       maps, proposals, 1 / 16, flatten=True), TOL_F32,
+                   f'on an eval batch\'s {tuple(proposals.shape[:2])} '
+                   'proposals')
+    ms = time_ms(lambda: dc5_fwd(maps, proposals), 20)
+    plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
+        maps, proposals, 1 / 16, flatten=True), 3, warmup=1)
+    nbytes, ops = roi_align_work(proposals, h, w, c)
+    fwd = _entry(FWD_LOOP, 63, nbytes, ops, max_abs_err=worst, ms=ms,
+                 plain_ms=plain_ms)
+    log(f'kernels: {FWD_LOOP} f32 {tuple(maps.shape)} x '
+        f'{b}x{proposals.shape[1]} proposals: {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, bound {fwd["bound_ms"]:.4f} ms '
+        f'({fwd["bound_by"]}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)')
+    feats, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    got = dc5_fwd(feats, rois)
+    worst = max(worst, _check(FWD_LOOP, got, roi_align.batched_roi_align_plain(
+        feats, rois, 1 / 16, flatten=True), TOL_F32,
+        f'on a step\'s {tuple(rois.shape[:2])} sampled RoIs'))
+    fwd['max_abs_err'] = worst
+    grad = torch.randn(got.shape, generator=gen, device='cuda')
+    worst = _check(BWD_LOOP, dc5_bwd(grad, rois, tuple(feats.shape)),
+                   plain_backward(feats, rois, grad, True), TOL_F32,
+                   'on sampled RoIs')
+    return [fwd, time_dc5_backward(BWD_LOOP, feats, rois, grad, worst)]
+
+
+def phase_loop(card, kernels):
+    """Train → evaluate → checkpoint → resume → serve through the command
+    line, on the gate-3 config at its published width."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    cfg = _loop_cfg()
+    val_images = len(build_dataset(cfg.data['val']))
+    eval_batches = -(-val_images // 8)
+    argv = [SYNTH, '--work-dir', LOOP_DIR, '--cfg-options', *LOOP_OPTIONS]
+    metrics, fwd, bwd, seconds = _run_cli(argv, 8, 2 * eval_batches)
+    recs = _check_log(f'{LOOP_DIR}/train_log.jsonl', [1, 2])
+    meta = [ckpt_io.load_meta(f'{LOOP_DIR}/ckpt_{e}')['epoch'] for e in (1, 2)]
+    if meta != [1, 2]:
+        raise RuntimeError(f'loop: checkpoints {meta}')
+    log(f'loop: DA_train 2 epochs x 4 steps of 8 images 128x192 (R18-DC5 '
+        f'daf, clip 35, EMA 0.9995) in {seconds:.2f} s with 2 evals on '
+        f'{val_images} images and 2 checkpoints; launches fwd {fwd} bwd '
+        f'{bwd}; records {recs}; final {metrics} [{card}]')
+
+    # resume: the restored state must be what the first call saved
+    saved = ckpt_io.load_checkpoint(f'{LOOP_DIR}/ckpt_1', 'cuda')
+    restored = []
+    original = train_api.restore_train_state
+
+    def spy(model, state, ckpt):
+        state = original(model, state, ckpt)
+        restored.append({k: v.clone() if torch.is_tensor(v) else
+                         ({n: t.clone() for n, t in v.items()}
+                          if isinstance(v, dict) else v)
+                         for k, v in ckpt_io.train_state_dict(
+                             model, state).items()})
+        return state
+    train_api.restore_train_state = spy
+    try:
+        _run_cli(argv + ['--resume-from', f'{LOOP_DIR}/ckpt_1'], 4,
+                 eval_batches)
+    finally:
+        train_api.restore_train_state = original
+    _same_payload(restored[0], saved, 'resume')
+    log(f'loop: resumed from ckpt_1 at step {saved["step"]}: params, '
+        'buffers, momentum, EMA and step equal to the saved ones, bit for '
+        'bit; epoch 2 trained again')
+
+    # serve the test split from its JPEG paths with the last checkpoint
+    bundle = init_detector(cfg, device='cuda',
+                           checkpoint=f'{LOOP_DIR}/ckpt_2')
+    test_ds = build_dataset(dict(cfg.data['test'], test_mode=True))
+    paths = [os.path.join(test_ds.img_prefix, info['filename'])
+             for info in test_ds.data_infos]
+    from_paths = inference_detector(bundle, paths)
+    from_arrays = inference_detector(bundle, [decode_jpeg(p) for p in paths])
+    n_dets = 0
+    for a, b in zip(from_paths, from_arrays):
+        n_dets += _check_result(a, (128, 192), bundle.model.num_classes, 50,
+                                bundle.model.roi_test_cfg.score_thr)
+        for x, y in zip(a, b):
+            if not np.array_equal(x, y):
+                raise RuntimeError('loop: serving a path differs from '
+                                   'serving its decoded array')
+    log(f'loop: init_detector(checkpoint=ckpt_2) served {len(paths)} test '
+        f'JPEGs by path: {n_dets} dets, equal to serving the arrays; '
+        f'classes {bundle.classes}')
+
+    # timings of the layers
+    decode_ms, loader_ms, batches = _time_loader(cfg, card)
+    times, trainer, state = _time_steps(cfg, batches)
+    med = float(np.median(times))
+    log(f'loop: step ms {[round(t, 2) for t in times]} median {med:.3f} '
+        f'min {min(times):.3f} max {max(times):.3f} (8 images 128x192 a '
+        f'step, batches made beforehand) [{card}]')
+    fed_runs = _time_fed_steps(cfg, trainer, state)
+    for p, runs in fed_runs.items():
+        log(f'loop: epochs of 4 steps fed by the loader with prefetch={p}: '
+            f'epoch ms {[round(e, 2) for e, _ in runs]}, step ms '
+            f'{[[round(t, 2) for t in ts] for _, ts in runs]} (the loader '
+            f'alone {loader_ms:.3f} ms a batch, the step alone {med:.3f})'
+            f' [{card}]')
+    fed = [t for _, ts in fed_runs[2] for t in ts]
+    epoch_ms = {p: float(np.mean([e for e, _ in runs]))
+                for p, runs in fed_runs.items()}
+    val_ds = build_dataset(cfg.data['val'], 'cuda')
+    FWD.launches = BWD.launches = 0
+    t0 = time.perf_counter()
+    ap = evaluate_dataset(bundle.model, val_ds, 8)
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t0) / len(val_ds)
+    if (FWD.launches, BWD.launches) != (eval_batches, 0):
+        raise RuntimeError(f'loop eval: launches {FWD.launches} / '
+                           f'{BWD.launches}')
+    log(f'loop: eval {len(val_ds)} images with ckpt_2\'s EMA weights: '
+        f'{eval_ms:.3f} ms an image (decode included), {ap} [{card}]')
+    payload = ckpt_io.train_state_dict(trainer.model, state)
+    save_ms, load_ms = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        ckpt_io.save_checkpoint(f'{LOOP_DIR}/timed', payload)
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        back = ckpt_io.load_checkpoint(f'{LOOP_DIR}/timed', 'cuda')
+        torch.cuda.synchronize()
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+    _same_payload(back, payload, 'checkpoint round trip')
+    size = os.path.getsize(f'{LOOP_DIR}/timed/{ckpt_io.STATE_FILE}')
+    shutil.rmtree(f'{LOOP_DIR}/timed')
+    log(f'loop: checkpoint {size / 1e6:.1f} MB: save ms '
+        f'{[round(t, 2) for t in save_ms]}, load ms '
+        f'{[round(t, 2) for t in load_ms]} [{card}]')
+    log(f'loop summary: decode {decode_ms:.3f} ms/img, loader '
+        f'{loader_ms:.3f} ms/batch, step median {med:.3f} ms (min '
+        f'{min(times):.3f} max {max(times):.3f}), fed step median '
+        f'{np.median(fed):.3f} ms, fed epoch mean {epoch_ms[2]:.3f} ms '
+        f'(prefetch 2) / {epoch_ms[0]:.3f} ms (prefetch 0), eval '
+        f'{eval_ms:.3f} ms/img, '
+        f'checkpoint save {np.median(save_ms):.3f} ms load '
+        f'{np.median(load_ms):.3f} ms, AP50 {ap["AP50"]} [{card}]')
+
+    # the pair in the loop's regime: an eval batch's proposals, a step's
+    # RoIs
+    entries = loop_kernels(*eval_proposals(bundle.model, val_ds),
+                           trainer.model, batches[0])
+    for e in entries:
+        e['launches'] = fwd if e['name'] == FWD_LOOP else bwd
+    kernels += entries
+    shutil.rmtree(LOOP_DIR)
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -1546,6 +1942,7 @@ def main():
     phase_c4_serving(card, kernels)
     phase_c4_train(card, kernels)
     phase_mask_reference()
+    phase_loop(card, kernels)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -6,6 +6,8 @@ nothing of JAX, so they run on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -475,3 +477,62 @@ def test_roi_align_kernels_on_zero_area_rois(cuda, dtype, tol, aligned):
                                     aligned=aligned)
     _close(got, ra.batched_roi_align_fpn_plain(pyr, rois, out_size=14,
                                                aligned=aligned), tol)
+
+
+SYNTH = pathlib.Path(__file__).resolve().parent / 'data' / 'synth_da_small'
+SYNTH_TRAIN = dict(
+    type='ConcatDataset', datasets=[
+        dict(type='DADataset', classes=('square', 'circle'), domain=domain,
+             ann_file=f'{SYNTH}/{sub}/ImageSets/Main/train.txt',
+             img_prefix=f'{SYNTH}/{sub}/',
+             pipeline=[dict(type='LoadImageFromFile'),
+                       dict(type='LoadAnnotations', with_bbox=True),
+                       dict(type='Resize', img_scale=(192, 128)),
+                       dict(type='RandomFlip', flip_ratio=0.5),
+                       dict(type='Normalize'),
+                       dict(type='Pad', size=(128, 192)),
+                       dict(type='PackDetInputs', max_gt=10)])
+        for sub, domain in (('shapes_clear', 'source'),
+                            ('shapes_foggy', 'target'))])
+
+
+@pytest.mark.cuda
+def test_loader_batches_on_the_card_equal_the_cpu_ones(cuda):
+    """Two epochs of the synth subset's two-stream loader made on the card
+    equal those made on the CPU, image included: decode on the host, then
+    the same elementwise float32 ops in the same order on both."""
+    from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data import (
+        DataLoader, build_dataset)
+    loaders = [DataLoader(build_dataset(SYNTH_TRAIN, d), 8, seed=0)
+               for d in ('cuda', 'cpu')]
+    n = 0
+    for _ in range(2):
+        for got, ref in zip(*loaders):
+            assert set(got) == set(ref)
+            for k, v in ref.items():
+                assert got[k].device.type == 'cuda'
+                assert torch.equal(got[k].cpu(), v), k
+            n += 1
+    assert n == 8
+
+
+@pytest.mark.cuda
+def test_inference_on_a_jpeg_path_equals_the_decoded_array(cuda):
+    """`inference_detector` on JPEG paths (decoded by the port's decoder,
+    the rest on the card) equals it on the same images passed as arrays."""
+    from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis import (
+        inference_detector, init_detector)
+    from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data.pipelines.jpeg import \
+        decode_jpeg
+    root = SYNTH.parent.parent.parent
+    paths = [str(p) for p in sorted(
+        (root / 'tests/data/voc_source/JPEGImages').glob('*.jpg'))]
+    bundle = init_detector(
+        str(root / 'configs/da/faster_rcnn_r18_tiny_fixture.py'),
+        device=cuda, seed=3)
+    from_paths = inference_detector(bundle, paths)
+    from_arrays = inference_detector(bundle, [decode_jpeg(p) for p in paths])
+    assert sum(len(d) for r in from_paths for d in r) > 0
+    for a, b in zip(from_paths, from_arrays):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)

@@ -185,9 +185,11 @@ def _imported_modules(path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    """Nothing of JAX or the JAX package, and no image library (the card
+    machine has neither PIL nor cv2: the port decodes JPEGs itself)."""
     files = sorted((ROOT / PORT_PKG).rglob('*.py')) + [ROOT / 'chip_smoke.py']
     assert len(files) > 20
-    banned = ('jax', 'jaxlib', 'flax', 'optax', JAX_PKG)
+    banned = ('jax', 'jaxlib', 'flax', 'optax', JAX_PKG, 'PIL', 'cv2')
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split('.')[0]

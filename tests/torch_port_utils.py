@@ -52,3 +52,22 @@ def edge_case_rois(rs: np.random.RandomState, b: int, n: int, h: int, w: int,
     k = min(len(special), n)
     rois[:, :k] = special[:k]
     return rois.astype(np.float32)
+
+
+SYNTH_CONFIG = 'configs/da/faster_rcnn_r18_synth_shapes.py'
+SYNTH_DATA = 'tests/data/synth_da_small'
+
+
+def synth_overrides(root) -> dict:
+    """Dotted overrides that point every split of the synth-shapes config at
+    the committed subset under `root` (the config builds its paths from
+    `data_root` when it loads, so each split's own paths are set)."""
+    out = {}
+    for key, sub, split in (('data.train.datasets.0', 'shapes_clear', 'train'),
+                            ('data.train.datasets.1', 'shapes_foggy', 'train'),
+                            ('data.val', 'shapes_foggy', 'test'),
+                            ('data.test', 'shapes_foggy', 'test')):
+        base = f'{root}/{SYNTH_DATA}/{sub}/'
+        out[f'{key}.ann_file'] = f'{base}ImageSets/Main/{split}.txt'
+        out[f'{key}.img_prefix'] = base
+    return out

@@ -5,9 +5,12 @@
 (n, 5) [x1, y1, x2, y2, score] float32 arrays in original image
 coordinates — the JAX package's return format.
 
-Weights: `variables` takes a JAX-package variable tree with numpy leaves
-(converted by `utils.convert.from_jax_variables`); without it the detector
-gets seeded random weights. Loading a checkpoint from disk is not ported yet.
+Weights: `checkpoint` names a port checkpoint directory (`ckpt_<tag>`,
+`utils/checkpoint.py`; its EMA parameters when it holds them, as the
+training loop evaluates), `variables` takes a JAX-package variable tree
+with numpy leaves (converted by `utils.convert.from_jax_variables`);
+without either the detector gets seeded random weights. The JAX package's
+orbax checkpoints cannot be read without JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..data.pipelines.transforms import (Compose, LoadImageFromFile,
                                          Resize)
 from ..models.builder import build_detector
 from ..models.weight_init import init_random_weights_
+from ..utils.checkpoint import load_checkpoint, load_meta, load_weights
 from ..utils.config import Config
 from ..utils.convert import load_jax_variables
 from ..utils.device import resolve_device
@@ -49,16 +53,25 @@ def init_detector(config: Union[str, Config],
                   variables: Optional[Mapping] = None,
                   device: Union[str, torch.device] = 'cuda',
                   classes: Optional[Sequence[str]] = None,
-                  seed: int = 0) -> DetectorBundle:
+                  seed: int = 0,
+                  checkpoint: Optional[str] = None) -> DetectorBundle:
     """Build the config's detector on `device` (CUDA unless the caller asks
-    for the CPU; raises without a card) with `variables` converted from the
-    JAX package, or with random weights from a `torch.Generator` seeded by
-    `seed`. The trunk's weights are channels_last."""
+    for the CPU; raises without a card) with the weights of a port
+    `checkpoint` (EMA parameters when it has them; its classes when
+    `classes` is not given), `variables` converted from the JAX package, or
+    random weights from a `torch.Generator` seeded by `seed`. The trunk's
+    weights are channels_last."""
+    if checkpoint is not None and variables is not None:
+        raise ValueError('give one of checkpoint and variables')
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     model = build_detector(cfg.model, device='meta')
     model = model.to_empty(device=device).to(memory_format=torch.channels_last)
-    if variables is not None:
+    if checkpoint is not None:
+        load_weights(model, load_checkpoint(checkpoint, device))
+        saved = load_meta(checkpoint).get('classes')
+        classes = classes or (tuple(saved) if saved else None)
+    elif variables is not None:
         load_jax_variables(model, variables)
     else:
         init_random_weights_(
@@ -100,12 +113,12 @@ def prepare_batch(bundle: DetectorBundle, imgs: Sequence):
     for img in imgs:
         if isinstance(img, str):
             results = LoadImageFromFile()(dict(
-                img_info=dict(filename=img), img_prefix=None))
+                img_info=dict(filename=img), img_prefix=None,
+                device=bundle.device))
         else:
             arr = np.asarray(img)
-            results = dict(img=torch.tensor(arr),
+            results = dict(img=torch.tensor(arr, device=bundle.device),
                            img_shape=arr.shape[:2], ori_shape=arr.shape[:2])
-        results['img'] = results['img'].to(bundle.device)
         results.setdefault('gt_bboxes', np.zeros((0, 4), np.float32))
         results.setdefault('gt_labels', np.zeros((0,), np.int64))
         samples.append(pipeline(results))
@@ -114,8 +127,10 @@ def prepare_batch(bundle: DetectorBundle, imgs: Sequence):
 
 def inference_detector(bundle: DetectorBundle,
                        imgs: Union[str, np.ndarray, List]):
-    """Detect on one image (path or HWC RGB uint8 array) or a list of them,
-    as one batch. Preprocessing runs on the bundle's device.
+    """Detect on one image (a JPEG path or an HWC RGB uint8 array) or a
+    list of them, as one batch. A path is decoded on the host
+    (`data.pipelines.jpeg`); the rest of the preprocessing runs on the
+    bundle's device.
 
     Returns per image `list[num_classes]` of (n, 5) arrays, original coords.
     """

@@ -1,26 +1,38 @@
-"""Trainer set-up from a config (counterpart of the part of the JAX
-package's `apis/train.py:train_detector` that builds the model, the
-optimizer spec and the train step).
+"""Training (counterpart of the JAX package's `apis/train.py`).
 
 `init_trainer(config)` → `Trainer(model, state, step, optimizer, spec, cfg,
-device)`;
-`trainer.step(trainer.state, batch)` runs one step. The dataset, the
-two-stream loader, checkpoints, evaluation and the command-line tool are
-not ported yet: the caller brings the batches (the padded dict of
-`FasterRCNN.loss`).
+device)`; `trainer.step(trainer.state, batch)` runs one step on the padded
+batch dict of `FasterRCNN.loss`.
+
+`train_detector(cfg, work_dir)` is the config-driven loop on one device:
+the train set and its loader (two-stream for a source/target
+`ConcatDataset`), the trainer with the loader's epoch length, resume or
+weight loading, then per epoch (or per `max_iters` for the iteration-based
+runner) the steps, `train_log.jsonl` records, `ckpt_<tag>` checkpoints and
+evaluation on the val set with the EMA parameters.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, NamedTuple, Optional, Union
+import contextlib
+import json
+import os
+import time
+import warnings
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Union
 
 import torch
 
+from ..data import DataLoader, build_dataset
 from ..models.builder import build_detector
 from ..models.weight_init import init_random_weights_
+from ..utils.checkpoint import (latest_checkpoint, load_checkpoint,
+                                load_weights, restore_train_state,
+                                save_checkpoint, train_state_dict)
 from ..utils.config import Config
 from ..utils.convert import load_jax_variables
 from ..utils.device import resolve_device
+from .test import evaluate_dataset
 from .train_state import (OptimizerSpec, TrainState, _FusedSGD,
                           create_train_state, make_train_step)
 
@@ -142,3 +154,198 @@ def init_trainer(config: Union[str, Config],
     step = make_train_step(model, tx, skip_nonfinite=nan_guard,
                            ema_momentum=ema_momentum)
     return Trainer(model, state, step, tx, spec, cfg, device)
+
+
+# detectors whose adversarial generator/discriminator game has its own step
+_GAN = {'CyDAFasterRCNN', 'CyCADA'}
+
+
+def _refuse_unported(cfg: Config, pretrained_backbone, n_devices, launcher):
+    """Raise on what the single-device loop does not port, each with its
+    reason."""
+    refused = [
+        (launcher not in (None, 'none'), f'launcher={launcher!r}: the port '
+         'trains on one device; multi-GPU training comes with its own slice'),
+        (n_devices not in (None, 1), f'n_devices={n_devices}: the port '
+         'trains on one device; multi-GPU training comes with its own slice'),
+        (bool(cfg.get('mesh')), 'a `mesh` block: the port trains on one '
+         'device; multi-GPU training comes with its own slice'),
+        (bool(cfg.get('dist_params')), 'a `dist_params` block: the port '
+         'trains on one device; multi-GPU training comes with its own slice'),
+        (bool(cfg.get('load_submodule')), 'a `load_submodule` block: '
+         'grafting a donor checkpoint into a submodule is not ported yet'),
+        (bool(pretrained_backbone), 'pretrained_backbone: the repository '
+         'holds no backbone weights; the port trains from seeded weights'),
+        (cfg.model.get('type') in _GAN, f'{cfg.model.get("type")}: the '
+         'CycleGAN detectors\' two-optimizer step is not ported yet'),
+        (cfg.get('fp16') is not None, 'an `fp16` block: the port trains in '
+         'float32'),
+    ]
+    for hit, reason in refused:
+        if hit:
+            raise NotImplementedError(reason)
+
+
+@contextlib.contextmanager
+def _eval_weights(model: torch.nn.Module, state: TrainState):
+    """`model` in eval mode with the EMA parameters (the live ones without
+    an EMA) for the duration; the live parameters are copied back, bit for
+    bit, and train mode restored afterwards."""
+    live = None
+    with torch.no_grad():
+        if state.ema_params is not None:
+            live = {n: p.detach().clone() for n, p in state.params.items()}
+            for n, p in state.params.items():
+                p.copy_(state.ema_params[n])
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train()
+        if live is not None:
+            with torch.no_grad():
+                for n, p in state.params.items():
+                    p.copy_(live[n])
+
+
+def _sampler_seed(seed: int, step: int) -> int:
+    """The samplers' seed at `step`: a function of `seed + 1` and the step
+    alone, as the JAX loop's `fold_in(key(seed + 1), step)` is."""
+    return ((seed + 1) << 32) + step
+
+
+def train_detector(cfg: Config, work_dir: str,
+                   resume_from: Optional[str] = None,
+                   load_from: Optional[str] = None,
+                   pretrained_backbone: Optional[str] = None,
+                   seed: int = 0, log_interval: int = 50,
+                   max_epochs: Optional[int] = None,
+                   eval_interval: int = 1,
+                   checkpoint_interval: int = 1,
+                   n_devices: Optional[int] = None,
+                   launcher: Optional[str] = None,
+                   device: Union[str, torch.device] = 'cuda'
+                   ) -> Dict[str, float]:
+    """Config-driven training on `device` (CUDA unless the caller asks for
+    the CPU). Returns the last evaluation's metrics ({} without one).
+
+    The loader's length sets the epoch; `evaluation.interval` and
+    `checkpoint_config.interval` (epochs, or steps for the iteration-based
+    runner) override `eval_interval` and `checkpoint_interval`. Every
+    `log_interval` steps and at an epoch's end a `mode='train'` record goes
+    to `work_dir/train_log.jsonl`; each evaluation (with the EMA parameters
+    when the trainer keeps them) writes a `mode='val'` record. Checkpoints
+    go to `work_dir/ckpt_<epoch or step>`, at the interval and at the end.
+    `resume_from` (a checkpoint, or 'auto' for the work dir's latest)
+    restores the whole state and starts at epoch step // steps per epoch;
+    `load_from` loads the weights alone (the EMA restarts from them). The
+    samplers draw from a `torch.Generator` on `device` seeded at every step
+    from `seed + 1` and the step (`_sampler_seed`), so a resumed run draws
+    what an uninterrupted one does; the loader's sampler and the datasets
+    draw from `seed`.
+
+    Multi-device training, submodule grafting, pretrained backbones, the
+    CycleGAN detectors and `fp16` raise NotImplementedError."""
+    _refuse_unported(cfg, pretrained_backbone, n_devices, launcher)
+    device = resolve_device(device)
+    os.makedirs(work_dir, exist_ok=True)
+    if max_epochs and 'Iter' not in str((cfg.get('runner') or {}).get(
+            'type', '')):
+        cfg = Config(cfg.to_dict(), cfg.filename)
+        cfg.merge_from_dict({'runner.max_epochs': max_epochs})
+    train_ds = build_dataset(cfg.data['train'], device)
+    samples_per_batch = cfg.data.get('samples_per_gpu', 2)
+    loader = DataLoader(train_ds, samples_per_batch, seed=seed)
+    steps_per_epoch = len(loader)
+    trainer = init_trainer(cfg, device=device, seed=seed,
+                           steps_per_epoch=steps_per_epoch)
+    model, state = trainer.model, trainer.state
+    # the reference's NumClassCheckHook
+    ds_classes = getattr(train_ds, 'CLASSES', None)
+    if ds_classes and len(ds_classes) != model.num_classes:
+        warnings.warn(
+            f'model.num_classes={model.num_classes} != len(dataset.CLASSES)='
+            f'{len(ds_classes)} ({ds_classes[:5]}…) — check the config '
+            f'(reference NumClassCheckHook)')
+    iter_based, epochs, max_iters, _ = resolve_runner(
+        cfg.get('runner', {}) or {}, cfg.get('lr_config', {}) or {},
+        steps_per_epoch)
+    eval_interval = (cfg.get('evaluation', {}) or {}).get(
+        'interval', eval_interval)
+    checkpoint_interval = (cfg.get('checkpoint_config', {}) or {}).get(
+        'interval', checkpoint_interval)
+
+    start_epoch = 0
+    if resume_from:
+        path = latest_checkpoint(work_dir) if resume_from == 'auto' \
+            else resume_from
+        if path:
+            state = restore_train_state(model, state,
+                                        load_checkpoint(path, device))
+            start_epoch = state.step // max(steps_per_epoch, 1)
+            print(f'[train] resumed from {path} (epoch {start_epoch})')
+    elif load_from:
+        load_weights(model, load_checkpoint(load_from, device), ema=False)
+        if state.ema_params is not None:
+            with torch.no_grad():
+                for n, p in state.params.items():
+                    state.ema_params[n].copy_(p)
+        print(f'[train] loaded weights from {load_from}')
+
+    gen = torch.Generator(device=device)
+    classes = list(ds_classes or [])
+    val_ds = None
+    metrics_out: Dict[str, float] = {}
+
+    def do_ckpt(tag: int):
+        save_checkpoint(os.path.join(work_dir, f'ckpt_{tag}'),
+                        train_state_dict(model, state),
+                        meta=dict(epoch=tag, classes=classes))
+
+    def do_eval(tag_key: str, tag: int):
+        nonlocal metrics_out, val_ds
+        if val_ds is None:
+            val_ds = build_dataset(cfg.data['val'], device)
+        with _eval_weights(model, state):
+            metrics_out = evaluate_dataset(model, val_ds, samples_per_batch)
+        rec = dict(mode='val', **{tag_key: tag},
+                   **{k: round(float(v), 4) for k, v in metrics_out.items()})
+        print(f'[eval] {rec}')
+        log_f.write(json.dumps(rec) + '\n')
+        log_f.flush()
+
+    with open(os.path.join(work_dir, 'train_log.jsonl'), 'a') as log_f:
+        done = False
+        for epoch in range(start_epoch, epochs):
+            t_epoch = time.time()
+            for it, batch in enumerate(loader):
+                gen.manual_seed(_sampler_seed(seed, state.step))
+                state, metrics = trainer.step(state, batch, gen)
+                g_it = epoch * steps_per_epoch + it + 1
+                if (it + 1) % log_interval == 0 or it + 1 == steps_per_epoch:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    rec = dict(mode='train', epoch=epoch + 1, iter=it + 1,
+                               **{k: round(v, 5) for k, v in m.items()})
+                    print(f'[train] {rec}')
+                    log_f.write(json.dumps(rec) + '\n')
+                    log_f.flush()
+                if iter_based:
+                    done = g_it >= max_iters
+                    if g_it % checkpoint_interval == 0 or done:
+                        do_ckpt(g_it)
+                    if 'val' in cfg.data and (g_it % eval_interval == 0
+                                              or done):
+                        do_eval('iter', g_it)
+                    if done:
+                        break
+            print(f'[train] epoch {epoch + 1} done in '
+                  f'{time.time() - t_epoch:.1f}s')
+            if done:
+                break
+            if iter_based:
+                continue
+            if (epoch + 1) % checkpoint_interval == 0 or epoch + 1 == epochs:
+                do_ckpt(epoch + 1)
+            if 'val' in cfg.data and (epoch + 1) % eval_interval == 0:
+                do_eval('epoch', epoch + 1)
+    return metrics_out

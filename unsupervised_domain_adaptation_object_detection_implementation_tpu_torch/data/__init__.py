@@ -1,3 +1,4 @@
-from .builder import collate
+from . import datasets  # noqa: F401  (registers the datasets)
+from .builder import DataLoader, build_dataloader, build_dataset, collate
 
-__all__ = ['collate']
+__all__ = ['DataLoader', 'build_dataloader', 'build_dataset', 'collate']

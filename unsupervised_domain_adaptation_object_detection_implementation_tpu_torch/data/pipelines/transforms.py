@@ -1,13 +1,16 @@
-"""Test-time data pipeline (counterpart of the JAX package's
-`data/pipelines/transforms.py`: `LoadImageFromFile`, keep-ratio `Resize`,
-`Normalize`, `Pad`, `PackDetInputs`, `Compose`).
+"""Data pipeline (counterpart of the JAX package's
+`data/pipelines/transforms.py`: `LoadImageFromFile`, `LoadAnnotations`,
+keep-ratio and multi-scale `Resize`, `RandomFlip`, `Normalize`, `Pad`,
+`PackDetInputs`, `MultiScaleFlipAug`, `Compose`).
 
 Each transform is a callable on a `results` dict whose `img` is an (H, W, 3)
-RGB torch tensor — uint8 until `Normalize`, float32 after — on whatever
-device the caller put it. On a card the whole chain runs there. Meta entries
-(`img_shape`, `scale_factor`, gt blocks) are small numpy arrays, as in the
-JAX package. Training-time transforms (flip, crops, photometric jitter,
-multi-scale resize) come with the dataset and loader.
+RGB torch tensor — uint8 until `Normalize`, float32 after — on the device
+named by `results['device']` (the dataset's): the image is decoded on the
+host (`jpeg.decode_jpeg`, no PIL or cv2), then moved to that device, where
+every later step runs. Meta entries (`img_shape`, `scale_factor`, gt blocks) are
+small numpy arrays, as in the JAX package. Random draws (scale, flip) come
+from `results['_rng']`, the dataset's `np.random.RandomState`, in the JAX
+package's order.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ...utils.registry import PIPELINES
+from .jpeg import decode_jpeg
 
 
 def _resize_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -77,16 +81,21 @@ def imresize(img: torch.Tensor, size_wh: Tuple[int, int]) -> torch.Tensor:
 
 @PIPELINES.register_module()
 class LoadImageFromFile:
-    """Read an image file as an RGB uint8 tensor (PIL decodes it)."""
+    """Read a JPEG file as an RGB uint8 tensor on `results['device']`
+    (`jpeg.decode_jpeg`: libjpeg-turbo's output, bit for bit); another
+    format raises. `to_float32` converts it to float32."""
+
+    def __init__(self, to_float32: bool = False):
+        self.to_float32 = to_float32
 
     def __call__(self, results):
-        from PIL import Image
         path = results['img_info']['filename']
         prefix = results.get('img_prefix')
         if prefix:
             path = osp.join(prefix, path)
-        with Image.open(path) as im:
-            img = torch.from_numpy(np.asarray(im.convert('RGB')).copy())
+        img = torch.from_numpy(decode_jpeg(path)).to(results['device'])
+        if self.to_float32:
+            img = img.float()
         results['filename'] = path
         results['img'] = img
         results['img_shape'] = tuple(img.shape[:2])
@@ -95,26 +104,75 @@ class LoadImageFromFile:
 
 
 @PIPELINES.register_module()
+class LoadAnnotations:
+    """The image's boxes (n, 4) float32 and labels (n,) int64 from
+    `results['ann_info']`, and its ignored boxes where it has them. Masks
+    are not ported: `with_mask=True` raises."""
+
+    def __init__(self, with_bbox: bool = True, with_label: bool = True,
+                 with_mask: bool = False, mask_size: int = 112):
+        if with_mask:
+            raise NotImplementedError('LoadAnnotations(with_mask=True): '
+                                      'mask annotations are not ported yet')
+        self.with_bbox = with_bbox
+        self.with_label = with_label
+
+    def __call__(self, results):
+        ann = results['ann_info']
+        if self.with_bbox:
+            results['gt_bboxes'] = \
+                ann['bboxes'].astype(np.float32).reshape(-1, 4)
+            if ann.get('bboxes_ignore') is not None:
+                results['gt_bboxes_ignore'] = \
+                    ann['bboxes_ignore'].astype(np.float32).reshape(-1, 4)
+        if self.with_label:
+            results['gt_labels'] = ann['labels'].astype(np.int64).reshape(-1)
+        return results
+
+
+@PIPELINES.register_module()
 class Resize:
     """Keep-ratio resize to fit inside `img_scale` = (long_edge,
-    short_edge): scale = min(long / max_side, short / min_side)."""
+    short_edge): scale = min(long / max_side, short / min_side).
 
-    def __init__(self, img_scale, keep_ratio: bool = True):
-        if isinstance(img_scale, (list, tuple)) and img_scale \
-                and isinstance(img_scale[0], (list, tuple)):
-            raise NotImplementedError('multi-scale Resize comes with the '
-                                      'train transforms')
-        self.img_scale = tuple(img_scale)
+    A list of scales picks one per image: `multiscale_mode='value'` (or
+    more than two scales) draws one of them, `'range'` draws each edge
+    uniformly between the two; `ratio_range=(lo, hi)` then jitters the
+    scale. The draws come from `results['_rng']` in the JAX package's
+    order."""
+
+    def __init__(self, img_scale, keep_ratio: bool = True,
+                 multiscale_mode: str = 'range', ratio_range=None):
+        self.img_scale = img_scale
         self.keep_ratio = keep_ratio
+        self.multiscale_mode = multiscale_mode
+        self.ratio_range = ratio_range
+
+    def _sample_scale(self, rng) -> Tuple[int, int]:
+        sc = self.img_scale
+        if isinstance(sc, (list, tuple)) and sc \
+                and isinstance(sc[0], (list, tuple)):
+            if self.multiscale_mode == 'value' or len(sc) != 2:
+                sc = sc[int(rng.randint(len(sc)))]
+            else:
+                longs = sorted(max(s) for s in sc)
+                shorts = sorted(min(s) for s in sc)
+                sc = (int(rng.randint(longs[0], longs[1] + 1)),
+                      int(rng.randint(shorts[0], shorts[1] + 1)))
+        if self.ratio_range is not None:
+            r = float(rng.uniform(*self.ratio_range))
+            sc = (int(max(sc) * r), int(min(sc) * r))
+        return tuple(sc)
 
     def __call__(self, results):
         h, w = results['img'].shape[:2]
-        long_edge, short_edge = max(self.img_scale), min(self.img_scale)
+        scale_hw = self._sample_scale(results.get('_rng', np.random))
+        long_edge, short_edge = max(scale_hw), min(scale_hw)
         if self.keep_ratio:
             scale = min(long_edge / max(h, w), short_edge / min(h, w))
             new_w, new_h = int(w * scale + 0.5), int(h * scale + 0.5)
         else:
-            new_w, new_h = self.img_scale
+            new_w, new_h = scale_hw
         img = imresize(results['img'], (new_w, new_h))
         w_scale = new_w / w
         h_scale = new_h / h
@@ -127,6 +185,29 @@ class Resize:
             boxes[:, 0::2] = boxes[:, 0::2].clip(0, new_w)
             boxes[:, 1::2] = boxes[:, 1::2].clip(0, new_h)
             results['gt_bboxes'] = boxes
+        return results
+
+
+@PIPELINES.register_module()
+class RandomFlip:
+    """Horizontal flip with probability `flip_ratio` (one `rng.rand()` per
+    image); a flipped box spans [w - x2, w - x1] of the resized width w."""
+
+    def __init__(self, flip_ratio: float = 0.5):
+        self.flip_ratio = flip_ratio
+
+    def __call__(self, results):
+        rng = results.get('_rng', np.random)
+        flip = bool(rng.rand() < self.flip_ratio)
+        results['flip'] = flip
+        if flip:
+            results['img'] = results['img'].flip(1)
+            if 'gt_bboxes' in results:
+                w = results['img_shape'][1]
+                boxes = results['gt_bboxes'].copy()
+                boxes[:, 0] = w - results['gt_bboxes'][:, 2]
+                boxes[:, 2] = w - results['gt_bboxes'][:, 0]
+                results['gt_bboxes'] = boxes
         return results
 
 
@@ -224,6 +305,24 @@ class PackDetInputs:
             domain=np.asarray(results.get('domain', 0), np.int32),
             **extra,
         )
+
+
+@PIPELINES.register_module()
+class MultiScaleFlipAug:
+    """The test-time wrapper at a single scale without flip, i.e. its inner
+    pipeline; multi-scale or flip test-time augmentation raises, as in the
+    JAX package."""
+
+    def __init__(self, transforms, img_scale=None, flip=False,
+                 scale_factor=None):
+        if flip or (isinstance(img_scale, list) and len(img_scale) > 1):
+            raise NotImplementedError(
+                'MultiScaleFlipAug: multi-scale or flip test-time '
+                'augmentation is not ported; use one scale and flip=False')
+        self.inner = Compose(transforms)
+
+    def __call__(self, results):
+        return self.inner(results)
 
 
 @PIPELINES.register_module()

@@ -2,11 +2,12 @@
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train \
         [--config configs/da/faster_rcnn_r50_daf_c2f.py] [--steps 5] \
-        [--out build/profile/profile_train.json]
+        [--size 512 1024] [--batch 2] [--out build/profile/profile_train.json]
 
 Builds the trainer with seeded random weights (past the lr warmup, as
-`chip_smoke.py` runs it) and a seeded batch of one source and one target
-image of 512x1024 (the domains matter to the DA detectors only; the FPN
+`chip_smoke.py` runs it) and a seeded batch, by default of one source and
+one target image of 512x1024 (`--batch 8 --size 128 192` is the synth
+loop's step; the domains matter to the DA detectors only; the FPN
 and Mask R-CNN configs, configs/cityscapes/*_r50_fpn_1x_cityscapes.py and
 configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x.py, train on both images; a
 detector with a mask head also gets seeded 112x112 box-frame rasters),
@@ -131,6 +132,8 @@ def main(argv=None):
     ap.add_argument('--steps', type=int, default=5)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--size', type=int, nargs=2, default=(512, 1024))
+    ap.add_argument('--batch', type=int, default=2,
+                    help='images a step, half source and half target')
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--out', default='build/profile/profile_train.json')
     args = ap.parse_args(argv)
@@ -148,7 +151,7 @@ def main(argv=None):
                            steps_per_epoch=STEPS_PER_EPOCH)
     state = trainer.state
     state = state._replace(opt_state=state.opt_state._replace(count=500))
-    batch = demo_batch(h=args.size[0], w=args.size[1],
+    batch = demo_batch(b=args.batch, h=args.size[0], w=args.size[1],
                        num_classes=trainer.model.num_classes, seed=args.seed,
                        device=args.device,
                        mask_size=MASK_SIZE if hasattr(trainer.model,
@@ -184,7 +187,8 @@ def main(argv=None):
             and not e.key.startswith(STAGE)]
     rows.sort(key=lambda r: -r[1])
     result = dict(
-        card=card, config=args.config, steps=args.steps, images_per_step=2,
+        card=card, config=args.config, steps=args.steps,
+        images_per_step=args.batch,
         step_ms=step_ms, step_ms_median=float(np.median(step_ms)),
         host_cpu_ms=cpu_ms, host_cpu_ms_median=float(np.median(cpu_ms)),
         profiled_steps=n, profiled_wall_ms=wall_ms,

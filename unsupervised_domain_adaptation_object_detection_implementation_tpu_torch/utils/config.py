@@ -1,8 +1,9 @@
 """Python-dict config loader with `_base_` inheritance and dotted overrides.
 
-A pure-Python copy of the loading part of the JAX package's
-`utils/config.py`, so `configs/` load unchanged in the port (the
-`--cfg-options` overrides come with the port's command-line tools). Config
+A pure-Python copy of the JAX package's `utils/config.py`, so `configs/`
+load unchanged in the port and the command-line tools take the same
+`--cfg-options` overrides (`parse_option_value`, dotted keys that index
+lists, `Config.dump`). Config
 files are plain python executed in an isolated namespace; `_base_` entries
 are merged depth-first (child wins, dicts merge recursively, `_delete_=True`
 replaces a dict wholesale).
@@ -10,8 +11,10 @@ replaces a dict wholesale).
 
 from __future__ import annotations
 
+import ast
 import copy
 import os
+import pprint
 import types
 from typing import Any, Dict, List, Optional, Union
 
@@ -61,11 +64,43 @@ def merge_dict(base: dict, override: dict) -> dict:
 
 
 def set_by_dotted_key(cfg: dict, key: str, value: Any) -> None:
-    """cfg['a']['b'] = value for key 'a.b', making missing levels."""
+    """cfg['a']['b'][2]['c'] = value for key 'a.b.2.c', making missing dict
+    levels; a part that meets a list indexes it."""
     *parents, last = key.split('.')
+    node: Any = cfg
     for k in parents:
-        cfg = cfg.setdefault(k, ConfigDict())
-    cfg[last] = value
+        if isinstance(node, (list, tuple)):
+            node = node[int(k)]
+        else:
+            node = node.setdefault(k, ConfigDict())
+    if isinstance(node, (list, tuple)):
+        node[int(last)] = value
+    else:
+        node[last] = value
+
+
+def parse_option_value(raw: str) -> Any:
+    """A `--cfg-options` value: true/false, none/null, a bracketed list or
+    tuple (`[45]`, `(8,11)`), an int, a float, a comma list, else the
+    string."""
+    lowered = raw.lower()
+    if lowered in ('true', 'false'):
+        return lowered == 'true'
+    if lowered in ('none', 'null'):
+        return None
+    if raw[:1] in '[(' and raw[-1:] in ')]':
+        try:
+            return list(ast.literal_eval(raw))
+        except (ValueError, SyntaxError):
+            pass
+    for caster in (int, float):
+        try:
+            return caster(raw)
+        except ValueError:
+            pass
+    if ',' in raw:
+        return [parse_option_value(p) for p in raw.split(',') if p]
+    return raw
 
 
 def _exec_pyfile(filename: str) -> Dict[str, Any]:
@@ -132,6 +167,12 @@ class Config:
 
     def to_dict(self) -> dict:
         return copy.deepcopy(dict(self._cfg))
+
+    def dump(self, path: str):
+        """Write the resolved config as a python file."""
+        with open(path, 'w') as f:
+            for k, v in self._cfg.items():
+                f.write(f'{k} = {pprint.pformat(v, width=100)}\n')
 
     def __repr__(self):
         return f'Config(file={self.filename}, keys={sorted(self._cfg)})'

@@ -89,4 +89,5 @@ NECKS = Registry('necks', parent=MODELS)
 HEADS = Registry('heads', parent=MODELS)
 DETECTORS = Registry('detectors', parent=MODELS)
 PIPELINES = Registry('pipelines')
+DATASETS = Registry('datasets')
 ANCHOR_GENERATORS = Registry('anchor_generators')
