@@ -115,11 +115,32 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    eval ms an image, checkpoint save and load ms; the pair held to the
    plain version and timed on a loop step's RoIs (bwd) and an eval batch's
    proposals (fwd). build/loop/ is emptied once the phase's checks pass.
+16. DA family — each of configs/da/faster_rcnn_r50_{daf_org,maf,swda,deep,
+   tri,cyda}_c2f.py and configs/da/cycada_pretrain_c2f.py at full width
+   (R50-DC5, 8 classes, seeded weights): 2 requests of 2 Cityscapes-size
+   images through `inference_detector` (forward once a request, backward
+   never; CyDA serves untranslated images), then `init_trainer`, 1 warm-up
+   and 3 timed steps on the seeded 512x1024 batch, each with finite losses
+   under exactly the variant's JAX keys and launching the pair's forward
+   and backward once (CyCADA: never). The frozen stem and layer1 stay
+   bit-identical, every other parameter moves and the variant's own heads
+   (image, SRM, MHSA position terms, generators, discriminators) with
+   them; CyCADA's detector moves by weight decay alone. The pair is held
+   to the plain version (and timed) on a MAF step's RoIs and on a CyDA
+   step's RoIs, sampled on translated images. Then the loop's GAN branch:
+   `tools.DA_train` on the synth config with CyDA (2 generator blocks, 16
+   images a step), 1 epoch of 2 steps with eval and a checkpoint, and a
+   resume whose restored state, both optimizers' momentum included, equals
+   the saved one bit for bit (build/loop/ emptied after). Last, a tiny R18
+   counterpart of each config: one train step on the card against the CPU,
+   TF32 off (losses 1e-4 relative, parameters 1e-4 of scale). Per config:
+   request ms, step ms (median, min–max) and peak GiB.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
+import gc
 import glob
 import json
 import math
@@ -138,6 +159,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ap
     train as train_api
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis.test import \
     evaluate_dataset
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis.train_state import \
+    at_count
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data import (
     DataLoader, build_dataset)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data.pipelines.jpeg import \
@@ -678,13 +701,15 @@ def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05):
     return total
 
 
-def _serve(card, config, label, expect, overrides=None):
+def _serve(card, config, label, expect, overrides=None, n_requests=4,
+           stats=None):
     """`init_detector` on `config` (full width, seeded random weights; with
-    `overrides` merged in), one warm-up request and 4 timed requests of 2
-    seeded Cityscapes-size images. `expect` maps a kernel's name to (its
-    launch counter, launches per request); the counters are set to 0 just
-    before the timed requests and checked after each. Returns the bundle,
-    the requests and the launch counts."""
+    `overrides` merged in), one warm-up request and `n_requests` timed
+    requests of 2 seeded Cityscapes-size images. `expect` maps a kernel's
+    name to (its launch counter, launches per request); the counters are
+    set to 0 just before the timed requests and checked after each.
+    Returns the bundle, the requests and the launch counts; `stats`, a
+    dict, gets the latencies (ms) and the peak memory (bytes)."""
     # serving runs with PyTorch's defaults: cuDNN convolutions in TF32,
     # matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
@@ -702,7 +727,7 @@ def _serve(card, config, label, expect, overrides=None):
         raise RuntimeError(f'canvas {bundle.canvas}, expected (608, 1024)')
     rs = np.random.RandomState(0)
     requests = [[rs.randint(0, 256, (1024, 2048, 3), dtype=np.uint8)
-                 for _ in range(2)] for _ in range(5)]
+                 for _ in range(2)] for _ in range(n_requests + 1)]
     t0 = time.perf_counter()
     inference_detector(bundle, requests[0])          # warm-up, set-up cost
     log(f'{label}: warm-up request '
@@ -729,10 +754,12 @@ def _serve(card, config, label, expect, overrides=None):
     launches = {k: fn.launches for k, (fn, _) in expect.items()}
     peak = torch.cuda.max_memory_allocated()
     total_s = sum(latencies) / 1e3
-    log(f'{label}: 4 requests x 2 images 1024x2048 -> {n_dets} dets; '
-        f'latency ms {[round(x, 2) for x in latencies]} mean '
-        f'{np.mean(latencies):.2f}; {8 / total_s:.2f} img/s; peak memory '
-        f'{peak / 2**30:.2f} GiB; launches {launches} [{card}]')
+    log(f'{label}: {n_requests} requests x 2 images 1024x2048 -> {n_dets} '
+        f'dets; latency ms {[round(x, 2) for x in latencies]} mean '
+        f'{np.mean(latencies):.2f}; {2 * n_requests / total_s:.2f} img/s; '
+        f'peak memory {peak / 2**30:.2f} GiB; launches {launches} [{card}]')
+    if stats is not None:
+        stats.update(latencies=latencies, peak=peak)
     return bundle, requests, launches
 
 
@@ -800,10 +827,12 @@ def phase_fpn_serving(card, kernels):
                            f'{TOL_F32 * scale}')
 
 
-def _train(card, config, steps_per_epoch, label, counters, batch=None):
+def _train(card, config, steps_per_epoch, label, counters, batch=None,
+           steps=5, keys=None):
     """`init_trainer` on `config` (full width, f32, seeded random weights)
-    and 1 warm-up + 5 timed steps past the lr warmup on `batch` (by default
-    the seeded batch of 2 images of 512x1024). `counters` maps a kernel's
+    and 1 warm-up + `steps` timed steps past the lr warmup on `batch` (by
+    default the seeded batch of 2 images of 512x1024). With `keys`, each
+    step's loss terms must be exactly those. `counters` maps a kernel's
     name to (its launch counter, launches per step): each step must launch
     each that often (counts set to 0 before the step, read after) and give
     finite losses. Returns (trainer, state, start parameters, step ms,
@@ -832,8 +861,8 @@ def _train(card, config, steps_per_epoch, label, counters, batch=None):
     # past the 500-step warmup, at the schedule's full lr: an update at the
     # first steps' lr is below f32 resolution for many parameters
     state, times = trainer.state, []
-    state = state._replace(opt_state=state.opt_state._replace(count=500))
-    for i in range(6):                  # 1 warm-up + 5 timed steps
+    state = state._replace(opt_state=at_count(state.opt_state, 500))
+    for i in range(1 + steps):          # 1 warm-up + the timed steps
         for fn, _ in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -848,7 +877,9 @@ def _train(card, config, steps_per_epoch, label, counters, batch=None):
             totals[name] += fn.launches
         values = {k: float(v) for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in values.values()) \
-                or values.get('skipped_nonfinite'):
+                or values.get('skipped_nonfinite') or (
+                    keys is not None and set(values) - {
+                        'loss', 'skipped_nonfinite'} != keys):
             raise RuntimeError(f'{label} step {i}: {values}')
         if i:
             times.append(ms)
@@ -866,18 +897,18 @@ def _moved(params, start, frozen, label):
         same = torch.equal(p.detach(), start[n])
         if n.startswith(frozen) != same:
             state = 'unchanged' if same else 'changed'
-            raise RuntimeError(f'{label}: {n} {state} after 6 steps')
+            raise RuntimeError(f'{label}: {n} {state} after the steps')
         moved += not same
     return moved
 
 
 def _train_summary(label, what, times, peak, totals, card):
     med = float(np.median(times))
-    return (f'{label}: 5 steps x 2 images 512x1024 ({what}): step ms '
-            f'{[round(t, 2) for t in times]} median {med:.2f} min '
+    return (f'{label}: {len(times)} steps x 2 images 512x1024 ({what}): step '
+            f'ms {[round(t, 2) for t in times]} median {med:.2f} min '
             f'{min(times):.2f} max {max(times):.2f}; {2e3 / med:.2f} img/s; '
-            f'peak memory {peak / 2**30:.2f} GiB; launches {totals} over 6 '
-            f'steps [{card}]')
+            f'peak memory {peak / 2**30:.2f} GiB; launches {totals} over '
+            f'{len(times) + 1} steps [{card}]')
 
 
 def phase_train(card, kernels):
@@ -1644,6 +1675,10 @@ def _same_payload(got, ref, what):
         if got[key] != ref[key]:
             raise RuntimeError(f'{what}: {key} {got[key]} != {ref[key]}')
     for key in ('params', 'buffers', 'momentum', 'ema_params'):
+        if ref[key] is None or got[key] is None:   # no EMA (the GAN step)
+            if (ref[key] is None) != (got[key] is None):
+                raise RuntimeError(f'{what}: {key} kept on one side only')
+            continue
         if set(got[key]) != set(ref[key]):
             raise RuntimeError(f'{what}: {key} names differ')
         for n, v in ref[key].items():
@@ -1924,6 +1959,264 @@ def phase_loop(card, kernels):
     kernels += entries
     shutil.rmtree(LOOP_DIR)
 
+# ---- the rest of the DA family: DAF-original, MAF, SWDA, DeepAlign,
+# Tri-attention, CyDA and CyCADA ---------------------------------------------
+
+DET_KEYS = {'loss_rpn_cls', 'loss_rpn_bbox', 'loss_cls', 'loss_bbox'}
+GAN_KEYS = {'cycle_loss', 'gan_g_loss', 'disc_loss'}
+TAP_KEYS = {'globle_da_loss', 'patch_bottom_loss', 'local_da_loss'}
+# (label, config, prefixes of the variant's own parameters, which must
+# move, and its loss terms, the JAX detector's keys)
+DA_FAMILY = (
+    ('daf_org', 'configs/da/faster_rcnn_r50_daf_org_c2f.py',
+     ('backbone.image_s3_0.', 'local_da.'),
+     DET_KEYS | {'img_da_loss', 'local_da_loss', 'consist_loss'}),
+    ('maf', 'configs/da/faster_rcnn_r50_maf_c2f.py',
+     ('backbone.srm_s1_0.', 'backbone.srm_s2_1.', 'backbone.srm_s3_2.'),
+     DET_KEYS | {'globle_da_loss', 'local_da_loss'}),
+    ('swda', 'configs/da/faster_rcnn_r50_swda_c2f.py',
+     ('backbone.pixel_s1_0.', 'backbone.global_s2_1.'), DET_KEYS | TAP_KEYS),
+    ('deep', 'configs/da/faster_rcnn_r50_deep_c2f.py',
+     ('backbone.pixel_s2_1.', 'backbone.global_s3_3.'), DET_KEYS | TAP_KEYS),
+    ('tri', 'configs/da/faster_rcnn_r50_tri_c2f.py',
+     ('backbone.global_s2_2.mhsa.rel_h', 'backbone.global_s2_2.mhsa.rel_w',
+      'backbone.global_s3_3.mhsa.rel_h', 'backbone.global_s3_3.mhsa.rel_w'),
+     DET_KEYS | TAP_KEYS),
+    ('cyda', 'configs/da/faster_rcnn_r50_cyda_c2f.py',
+     ('gen_s2t.', 'gen_t2s.', 'disc_s.', 'disc_t.'),
+     DET_KEYS | GAN_KEYS | {'globle_da_loss'}),
+    ('cycada', 'configs/da/cycada_pretrain_c2f.py',
+     ('gen_s2t.', 'gen_t2s.', 'disc_s.', 'disc_t.'), GAN_KEYS),
+)
+FWD_FAMILY, BWD_FAMILY = ('roi_align_pyramid_fwd/da_family',
+                          'roi_align_pyramid_bwd/da_family')
+FWD_CYDA, BWD_CYDA = ('roi_align_pyramid_fwd/cyda_step',
+                      'roi_align_pyramid_bwd/cyda_step')
+# CyCADA's translation phase never reaches the detector
+NO_LAUNCHES = {
+    'roi_align_pyramid_fwd': (roi_align.roi_align_pyramid_cuda, 0),
+    'roi_align_pyramid_bwd': (roi_align.roi_align_pyramid_bwd_cuda, 0)}
+# the GAN branch of the loop: the gate-3 config with the CyDA detector (two
+# generator blocks), 16 images a step so that an epoch is 2 steps, 1 epoch
+# with eval and a checkpoint, then a resume that trains a second epoch
+GAN_LOOP_OPTIONS = [o for o in LOOP_OPTIONS if not o.startswith(
+    'runner.max_epochs')] + ['model.type=CyDAFasterRCNN',
+                             'model.gen_blocks=2', 'data.samples_per_gpu=16']
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cycada_detector_check(trainer, start, label):
+    """CyCADA's detector gets no gradient: each trainable detector
+    parameter must equal what SGD makes of it from a zero gradient (weight
+    decay and momentum alone, replayed here over the same step counts), the
+    frozen ones their start. Returns the number of detector parameters."""
+    tx_main = trainer.optimizer[0]
+    mu, wd = tx_main.spec.momentum, tx_main.spec.weight_decay
+    n = 0
+    for name, p in trainer.state.params.items():
+        if name.startswith(('gen_', 'disc_')):
+            continue
+        n += 1
+        p0 = start[name]
+        if not tx_main.trainable[name]:
+            if not torch.equal(p.detach(), p0):
+                raise RuntimeError(f'{label}: frozen {name} changed')
+            continue
+        ref, m = p0.double(), torch.zeros_like(p0, dtype=torch.float64)
+        for count in range(500, 504):            # 1 warm-up + 3 timed
+            m = mu * m + wd * ref
+            ref = ref - tx_main.schedule(count) * m
+        err = float((p.detach().double() - ref).abs().max())
+        if not err <= 1e-6 * max(1.0, float(ref.abs().max())):
+            raise RuntimeError(f'{label}: {name} is not weight decay alone '
+                               f'({err})')
+    return n
+
+
+def _own_heads_moved(params, start, prefixes, label):
+    """The variant's own parameters exist and every one of them moved."""
+    own = [n for n in params if any(n.startswith(pre) or pre in n
+                                    for pre in prefixes)]
+    missing = [pre for pre in prefixes
+               if not any(n.startswith(pre) or pre in n for n in own)]
+    if missing:
+        raise RuntimeError(f'{label}: no parameters {missing}')
+    for n in own:
+        if torch.equal(params[n].detach(), start[n]):
+            raise RuntimeError(f'{label}: {n} did not move')
+    return len(own)
+
+
+def cyda_step_rois_batch(model, batch):
+    """`batch` with the images the detector of a CyDA step sees
+    (`detector_images`: the source rows translated, the target rows
+    raw)."""
+    return dict(batch, image=model.detector_images(batch).contiguous())
+
+
+def step_kernels(model, batch, fwd_name, bwd_name, what):
+    """The pair against the plain version on the RoIs that a train step of
+    the trained full-width `model` samples from `batch`: forward (timed),
+    and backward on a seeded cotangent (timed). Returns both entries."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    b, h, w, c = feats.shape
+    log(f'da family: {what}: {tuple(rois.shape[:2])} sampled RoIs on the '
+        f'{tuple(feats.shape)} map')
+    got = dc5_fwd(feats, rois)
+    worst = _check(fwd_name, got, roi_align.batched_roi_align_plain(
+        feats, rois, 1 / 16, flatten=True), TOL_F32, f'on {what}')
+    ms = time_ms(lambda: dc5_fwd(feats, rois), 20)
+    plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
+        feats, rois, 1 / 16, flatten=True), 3, warmup=1)
+    nbytes, ops = roi_align_work(rois, h, w, c)
+    fwd = _entry(fwd_name, 63, nbytes, ops, max_abs_err=worst, ms=ms,
+                 plain_ms=plain_ms)
+    log(f'kernels: {fwd_name} f32 {tuple(feats.shape)} x {b}x'
+        f'{rois.shape[1]} rois: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{fwd["bound_ms"]:.4f} ms ({fwd["bound_by"]}: {nbytes / 1e6:.1f} '
+        f'MB, {ops / 1e9:.2f} GFLOP)')
+    grad = torch.randn(got.shape, generator=gen, device='cuda')
+    worst = _check(bwd_name, dc5_bwd(grad, rois, tuple(feats.shape)),
+                   plain_backward(feats, rois, grad, True), TOL_F32,
+                   f'on {what}')
+    return [fwd, time_dc5_backward(bwd_name, feats, rois, grad, worst)]
+
+
+def phase_da_family(card, kernels):
+    """Each of the seven configs at full width: 2 requests served, 1
+    warm-up and 3 timed train steps, the launches counted, the frozen stem
+    and layer1 unchanged, the variant's own heads moved; the pair held on
+    a MAF step's RoIs and on a CyDA step's RoIs of translated images."""
+    launches = dict(fwd=0, bwd=0, cyda_fwd=0, cyda_bwd=0)
+    rows = []
+    for label, config, own, keys in DA_FAMILY:
+        gan = label in ('cyda', 'cycada')
+        stats = {}
+        bundle, _, served = _serve(card, config, f'da {label} serving',
+                                   SERVING_LAUNCHES, n_requests=2,
+                                   stats=stats)
+        launches['fwd'] += served['roi_align_pyramid_fwd']
+        del bundle
+        _free()
+        trainer, state, start, times, totals, peak = _train(
+            card, config, CITYSCAPES_STEPS, f'da {label} train',
+            NO_LAUNCHES if label == 'cycada' else STEP_LAUNCHES, steps=3,
+            keys=keys)
+        launches['fwd'] += totals['roi_align_pyramid_fwd']
+        launches['bwd'] += totals['roi_align_pyramid_bwd']
+        params = trainer.state.params
+        if (state.ema_params is None) != gan:
+            raise RuntimeError(f'{label}: EMA {state.ema_params is not None}'
+                               f', expected {not gan}')
+        n_own = _own_heads_moved(params, start, own, label)
+        if label == 'cycada':
+            n_det = _cycada_detector_check(trainer, start, label)
+            moved = f'detector ({n_det} parameters) moved by weight decay ' \
+                'alone, frozen stem and layer1 unchanged'
+        else:
+            moved = f'{_moved(params, start, FROZEN, label)} parameters ' \
+                'moved, stem and layer1 unchanged'
+        log(_train_summary(f'da {label} train', f'R50-DC5 {label} f32',
+                           times, peak, totals, card)
+            + f'; {moved}; its own {n_own} parameters moved')
+        if label == 'maf':
+            kernels += step_kernels(trainer.model, demo_batch(), FWD_FAMILY,
+                                    BWD_FAMILY, 'a MAF step\'s RoIs')
+        elif label == 'cyda':
+            launches['cyda_fwd'] = totals['roi_align_pyramid_fwd']
+            launches['cyda_bwd'] = totals['roi_align_pyramid_bwd']
+            kernels += step_kernels(
+                trainer.model, cyda_step_rois_batch(trainer.model,
+                                                    demo_batch()),
+                FWD_CYDA, BWD_CYDA, 'a CyDA step\'s RoIs of translated '
+                'images')
+        med = float(np.median(times))
+        rows.append(f'{label}: request ms {np.mean(stats["latencies"]):.2f} '
+                    f'({[round(t, 2) for t in stats["latencies"]]}), step ms '
+                    f'median {med:.2f} (min {min(times):.2f} max '
+                    f'{max(times):.2f}), peak {peak / 2**30:.2f} GiB train, '
+                    f'{stats["peak"] / 2**30:.2f} GiB serving')
+        del trainer, state, start, params
+        _free()
+    _set_launches(kernels, FWD_FAMILY, launches['fwd'])
+    _set_launches(kernels, BWD_FAMILY, launches['bwd'])
+    _set_launches(kernels, FWD_CYDA, launches['cyda_fwd'])
+    _set_launches(kernels, BWD_CYDA, launches['cyda_bwd'])
+    for row in rows:
+        log(f'da family summary: {row} [{card}]')
+
+
+def phase_gan_loop(card):
+    """The loop's GAN branch through the command line: 1 epoch of 2 steps
+    of CyDA (16 images a step, two generator blocks) with eval and a
+    checkpoint, then a resume from it for a second epoch; the restored
+    state (parameters, buffers, both optimizers' momentum and count) must
+    equal the saved one bit for bit. Empties build/loop/ afterwards."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    argv = [SYNTH, '--work-dir', LOOP_DIR, '--cfg-options',
+            *GAN_LOOP_OPTIONS]
+    cfg = DA_train.load_config(DA_train.parse_args(argv))
+    eval_batches = -(-len(build_dataset(cfg.data['val'])) // 16)
+    _, fwd, bwd, seconds = _run_cli(argv + ['runner.max_epochs=1'], 2,
+                                    eval_batches)
+    recs = _check_log(f'{LOOP_DIR}/train_log.jsonl', [1])
+    if not all(GAN_KEYS <= set(r) for r in recs if r['mode'] == 'train'):
+        raise RuntimeError(f'gan loop: records {recs}')
+    saved = ckpt_io.load_checkpoint(f'{LOOP_DIR}/ckpt_1', 'cuda')
+    if saved['ema_params'] is not None or not any(
+            n.startswith('disc_t.') for n in saved['momentum']):
+        raise RuntimeError('gan loop: the checkpoint holds an EMA or no '
+                           'discriminator momentum')
+    restored = []
+    original = train_api.restore_train_state
+
+    def spy(model, state, ckpt):
+        state = original(model, state, ckpt)
+        if not isinstance(state.opt_state, tuple) or \
+                len(state.opt_state) != 2:
+            raise RuntimeError('gan loop: resumed without two optimizers')
+        restored.append({k: v.clone() if torch.is_tensor(v) else
+                         ({n: t.clone() for n, t in v.items()}
+                          if isinstance(v, dict) else v)
+                         for k, v in ckpt_io.train_state_dict(
+                             model, state).items()})
+        return state
+    train_api.restore_train_state = spy
+    try:
+        _run_cli(argv + ['runner.max_epochs=2', '--resume-from',
+                         f'{LOOP_DIR}/ckpt_1'], 2, eval_batches)
+    finally:
+        train_api.restore_train_state = original
+    _same_payload(restored[0], saved, 'gan resume')
+    log(f'gan loop: DA_train CyDA (2 generator blocks) 1 epoch x 2 steps of '
+        f'16 images 128x192 in {seconds:.2f} s with eval and a checkpoint; '
+        f'launches fwd {fwd} bwd {bwd}; resumed from ckpt_1 at step '
+        f'{saved["step"]}: params, buffers, both optimizers\' momentum '
+        f'({len(saved["momentum"])} tensors) and count equal to the saved '
+        f'ones, bit for bit; records {recs} [{card}]')
+    shutil.rmtree(LOOP_DIR)
+
+
+def phase_da_family_reference():
+    """A tiny R18 counterpart of each of the seven configs (the tiny
+    fixture's 64x96 canvas, CyDA and CyCADA with two generator blocks):
+    one train step on the card against the CPU, TF32 off."""
+    for label, config, _, _ in DA_FAMILY:
+        cfg = Config.fromfile(TINY)
+        det_type = Config.fromfile(config).model['type']
+        cfg.merge_from_dict({'model.type': det_type})
+        if label in ('cyda', 'cycada'):
+            cfg.merge_from_dict({'model.gen_blocks': 2})
+        phase_reference_train(cfg, f'tiny {label} (R18)')
+
 
 def main():
     card = phase_device()
@@ -1943,6 +2236,9 @@ def main():
     phase_c4_train(card, kernels)
     phase_mask_reference()
     phase_loop(card, kernels)
+    phase_da_family(card, kernels)
+    phase_gan_loop(card)
+    phase_da_family_reference()
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

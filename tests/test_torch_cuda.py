@@ -536,3 +536,42 @@ def test_inference_on_a_jpeg_path_equals_the_decoded_array(cuda):
     for a, b in zip(from_paths, from_arrays):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('det_type', ['DAFasterRCNN_Org', 'MAFasterRCNN',
+                                      'FasterRCNN_SWDA', 'DAFasterRCNN_Deep',
+                                      'DAFasterRCNN_Tri', 'CyDAFasterRCNN',
+                                      'CyCADA'])
+def test_da_family_serves_on_the_card_as_on_the_cpu(cuda, det_type):
+    """Each DA detector of the tiny fixture (CyDA's with one generator
+    block) serves on the card through the kernel pair, one forward launch
+    a batch, with the CPU's detections (1e-3, TF32 off); CyDA's
+    `translate` gives the CPU's images (1e-4)."""
+    from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis import (
+        inference_detector, init_detector)
+    from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.utils.config import \
+        Config
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(str(SYNTH.parent.parent.parent / 'configs' / 'da'
+                              / 'faster_rcnn_r18_tiny_fixture.py'))
+    cfg.merge_from_dict({'model.type': det_type, 'model.gen_blocks': 1})
+    imgs = [np.random.RandomState(i).randint(0, 256, (64, 96, 3),
+                                             dtype=np.uint8) for i in (1, 2)]
+    bundle = init_detector(cfg, device='cpu', seed=3)
+    ref = inference_detector(bundle, imgs)
+    x = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(0))
+    ref_t = bundle.model.translate({'image': x}) \
+        if det_type.startswith('Cy') else None
+    bundle = bundle._replace(model=bundle.model.to(cuda), device=cuda)
+    before = ra.roi_align_pyramid_cuda.launches
+    got = inference_detector(bundle, imgs)
+    assert ra.roi_align_pyramid_cuda.launches == before + 1
+    for g_img, r_img in zip(got, ref):
+        for g, r in zip(g_img, r_img):
+            assert g.shape == r.shape
+            np.testing.assert_allclose(g, r, atol=1e-3)
+    if ref_t is not None:
+        got_t = bundle.model.translate({'image': x.to(cuda)})
+        np.testing.assert_allclose(got_t.cpu().numpy(), ref_t.numpy(),
+                                   atol=1e-4)

@@ -62,14 +62,14 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1) if x.dim() == 4 else x
 
 
-def _train_both(jmod, tmod, x, seed, map_in=True, map_out=False,
-                **apply_kw):
+def _train_both(jmod, tmod, x, seed, map_in=True, map_out=False, tol=1e-4,
+                grad_floor=0.1, **apply_kw):
     """One train-mode forward and backward of sum(out * R) on both sides
     from the same variables; checks outputs, input and parameter gradients
-    and the updated batch statistics. `map_in`/`map_out`: the port module
-    takes / returns NCHW where the JAX one has NHWC. A bias in front of a
-    BatchNorm has a true gradient of 0, so parameter gradients are held to
-    1e-4 of at least 0.1."""
+    and the updated batch statistics, each within `tol` of its scale.
+    `map_in`/`map_out`: the port module takes / returns NCHW where the JAX
+    one has NHWC. A bias in front of a BatchNorm has a true gradient of 0,
+    so parameter gradients are held to `tol` of at least `grad_floor`."""
     rs = np.random.RandomState(seed)
     k = jax.random.PRNGKey(0)
     shapes = jax.eval_shape(lambda: jmod.init(
@@ -97,18 +97,18 @@ def _train_both(jmod, tmod, x, seed, map_in=True, map_out=False,
     got = tmod(_nchw(xt) if map_in else xt)
     got = _nhwc(got) if map_out else got
     (got * _t(cot)).sum().backward()
-    _close(got.detach().numpy(), ref)
-    _close(xt.grad.numpy(), gx)
+    _close(got.detach().numpy(), ref, tol)
+    _close(xt.grad.numpy(), gx, tol)
     grads, unmapped = convert.from_jax_variables({'params': gp}, tmod)
     assert unmapped == []
     for name, p in tmod.named_parameters():
-        _close(p.grad.numpy(), grads[name].numpy(), floor=0.1)
+        _close(p.grad.numpy(), grads[name].numpy(), tol, floor=grad_floor)
     new_stats, _ = convert.from_jax_variables(
         {'batch_stats': new_vars.get('batch_stats', {})}, tmod)
     buffers = dict(tmod.named_buffers())
     assert set(new_stats) == set(buffers)
     for name, b in buffers.items():
-        _close(b.numpy(), new_stats[name].numpy())
+        _close(b.numpy(), new_stats[name].numpy(), tol)
     return new_stats
 
 

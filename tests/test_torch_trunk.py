@@ -88,7 +88,12 @@ def test_da_resnet_inference_matches_and_heads_raise():
                         with_da=False)
     assert da == {}
     _close(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref))
-    # the heads of other variants (MAF's SRM) still raise
+    # the heads of the other variants (MAF's SRM) run now; what still
+    # raises is the Swin trunk
     maf = tda.DAResNet(depth=18, taps=tda.VARIANT_TAPS['maf'])
-    with pytest.raises(NotImplementedError, match='other DA variants'):
-        maf(torch.from_numpy(x).permute(0, 3, 1, 2))
+    with torch.no_grad():
+        _, da = maf(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert {k: tuple(v.shape) for k, v in da.items()} == {
+        'srm_s1_0': (1, 2), 'srm_s2_1': (1, 2), 'srm_s3_2': (1, 2)}
+    with pytest.raises(NotImplementedError, match='Swin'):
+        tda.DAResNet(depth=18, trunk_type='swin')

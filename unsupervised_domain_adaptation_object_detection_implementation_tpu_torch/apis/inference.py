@@ -25,7 +25,7 @@ from ..data import collate
 from ..data.pipelines.transforms import (Compose, LoadImageFromFile,
                                          Normalize, PackDetInputs, Pad,
                                          Resize)
-from ..models.builder import build_detector
+from ..models.builder import build_detector, train_canvas
 from ..models.weight_init import init_random_weights_
 from ..utils.checkpoint import load_checkpoint, load_meta, load_weights
 from ..utils.config import Config
@@ -60,12 +60,14 @@ def init_detector(config: Union[str, Config],
     `checkpoint` (EMA parameters when it has them; its classes when
     `classes` is not given), `variables` converted from the JAX package, or
     random weights from a `torch.Generator` seeded by `seed`. The trunk's
-    weights are channels_last."""
+    weights are channels_last. MHSA heads, which serving never runs, are
+    sized for the train pipeline's canvas, as the trainer sizes them, so a
+    checkpoint of the trainer loads."""
     if checkpoint is not None and variables is not None:
         raise ValueError('give one of checkpoint and variables')
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
-    model = build_detector(cfg.model, device='meta')
+    model = build_detector(cfg.model, device='meta', canvas=train_canvas(cfg))
     model = model.to_empty(device=device).to(memory_format=torch.channels_last)
     if checkpoint is not None:
         load_weights(model, load_checkpoint(checkpoint, device))

@@ -2,7 +2,11 @@
 
 `init_trainer(config)` → `Trainer(model, state, step, optimizer, spec, cfg,
 device)`; `trainer.step(trainer.state, batch)` runs one step on the padded
-batch dict of `FasterRCNN.loss`.
+batch dict of `FasterRCNN.loss`. The CycleGAN detectors (CyDA, CyCADA)
+get the two-group step `make_gan_train_step`, whose optimizer is the pair
+(main, discriminators) and which, as in the JAX loop, keeps no EMA and has
+no NaN guard, whatever the config asks; evaluation then uses the live
+parameters.
 
 `train_detector(cfg, work_dir)` is the config-driven loop on one device:
 the train set and its loader (two-stream for a source/target
@@ -19,12 +23,13 @@ import json
 import os
 import time
 import warnings
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Union
+from typing import (Callable, Dict, Mapping, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 
 from ..data import DataLoader, build_dataset
-from ..models.builder import build_detector
+from ..models.builder import build_detector, train_canvas
 from ..models.weight_init import init_random_weights_
 from ..utils.checkpoint import (latest_checkpoint, load_checkpoint,
                                 load_weights, restore_train_state,
@@ -34,7 +39,8 @@ from ..utils.convert import load_jax_variables
 from ..utils.device import resolve_device
 from .test import evaluate_dataset
 from .train_state import (OptimizerSpec, TrainState, _FusedSGD,
-                          create_train_state, make_train_step)
+                          create_gan_train_state, create_train_state,
+                          make_gan_train_step, make_train_step)
 
 # detector types whose adversarial game gets the NaN guard by default
 _ADVERSARIAL = {'DAFasterRCNN', 'DAFasterRCNN_Org', 'MAFasterRCNN',
@@ -42,11 +48,16 @@ _ADVERSARIAL = {'DAFasterRCNN', 'DAFasterRCNN_Org', 'MAFasterRCNN',
                 'CyDAFasterRCNN', 'CyCADA'}
 
 
+# detector types whose adversarial generator/discriminator game has its own
+# two-group step
+_GAN = {'CyDAFasterRCNN', 'CyCADA'}
+
+
 class Trainer(NamedTuple):
     model: torch.nn.Module
     state: TrainState
     step: Callable
-    optimizer: _FusedSGD
+    optimizer: Union[_FusedSGD, Tuple[_FusedSGD, _FusedSGD]]
     spec: OptimizerSpec
     cfg: Config
     device: torch.device
@@ -131,12 +142,16 @@ def init_trainer(config: Union[str, Config],
     per the config, the stem and `backbone.frozen_stages` stages frozen,
     the EMA when the config asks for one, and the NaN guard by default for
     the adversarial detectors (`optimizer_config.nan_guard` overrides).
+    The CycleGAN detectors get the two-group step instead, with no EMA
+    and no guard. The MHSA heads are sized for the train pipeline's `Pad`
+    canvas (`train_canvas`).
     `steps_per_epoch`, the loader's length, turns epoch milestones into
     steps; a config with the epoch-based runner raises without it."""
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     spec = optimizer_spec(cfg, steps_per_epoch)
-    model = build_detector(cfg.model, device='meta')
+    model = build_detector(cfg.model, device='meta',
+                           canvas=train_canvas(cfg))
     model = model.to_empty(device=device).to(memory_format=torch.channels_last)
     if variables is not None:
         load_jax_variables(model, variables)
@@ -146,6 +161,12 @@ def init_trainer(config: Union[str, Config],
     model.train()
 
     frozen = cfg.model.get('backbone', {}).get('frozen_stages', 1)
+    if cfg.model.get('type') in _GAN:
+        state, tx_main, tx_disc = create_gan_train_state(
+            model, spec, frozen_stages=frozen)
+        step = make_gan_train_step(model, tx_main, tx_disc)
+        return Trainer(model, state, step, (tx_main, tx_disc), spec, cfg,
+                       device)
     ema_momentum = ema_momentum_of(cfg)
     state, tx = create_train_state(model, spec, frozen_stages=frozen,
                                    ema=ema_momentum is not None)
@@ -154,10 +175,6 @@ def init_trainer(config: Union[str, Config],
     step = make_train_step(model, tx, skip_nonfinite=nan_guard,
                            ema_momentum=ema_momentum)
     return Trainer(model, state, step, tx, spec, cfg, device)
-
-
-# detectors whose adversarial generator/discriminator game has its own step
-_GAN = {'CyDAFasterRCNN', 'CyCADA'}
 
 
 def _refuse_unported(cfg: Config, pretrained_backbone, n_devices, launcher):
@@ -176,10 +193,9 @@ def _refuse_unported(cfg: Config, pretrained_backbone, n_devices, launcher):
          'grafting a donor checkpoint into a submodule is not ported yet'),
         (bool(pretrained_backbone), 'pretrained_backbone: the repository '
          'holds no backbone weights; the port trains from seeded weights'),
-        (cfg.model.get('type') in _GAN, f'{cfg.model.get("type")}: the '
-         'CycleGAN detectors\' two-optimizer step is not ported yet'),
         (cfg.get('fp16') is not None, 'an `fp16` block: the port trains in '
-         'float32'),
+         'float32; mixed precision comes with the bf16 slice, ROADMAP.md '
+         'Queue 1'),
     ]
     for hit, reason in refused:
         if hit:
@@ -244,8 +260,8 @@ def train_detector(cfg: Config, work_dir: str,
     what an uninterrupted one does; the loader's sampler and the datasets
     draw from `seed`.
 
-    Multi-device training, submodule grafting, pretrained backbones, the
-    CycleGAN detectors and `fp16` raise NotImplementedError."""
+    Multi-device training, submodule grafting, pretrained backbones and
+    `fp16` raise NotImplementedError."""
     _refuse_unported(cfg, pretrained_backbone, n_devices, launcher)
     device = resolve_device(device)
     os.makedirs(work_dir, exist_ok=True)

@@ -12,23 +12,29 @@ forward updates. `TrainState.params` holds the same Parameter objects, so
 after a step both show the new values. The momentum is updated in place.
 Only the SGD with the 'step' lr policy and linear warmup is ported; other
 optimizers and policies raise.
+
+The CycleGAN detectors train two parameter groups in one step
+(`make_gan_train_step`): the discriminators (`disc_s`, `disc_t`) on the
+`disc_*` loss terms, every other parameter on the rest, each group with
+its own SGD; `opt_state` is then the pair (main, discriminators).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ..models.detectors.cyda_faster_rcnn import DISC_KEYS
 from .hooks import ema_update, guard_nonfinite_update
 
 
 class TrainState(NamedTuple):
     step: int
     params: Dict[str, nn.Parameter]
-    opt_state: 'FusedSGDState'
+    opt_state: Union['FusedSGDState', Tuple['FusedSGDState', ...]]
     ema_params: Optional[Dict[str, torch.Tensor]] = None
 
 
@@ -99,6 +105,19 @@ def frozen_mask(params: Dict[str, torch.Tensor], frozen_stages: int,
 class FusedSGDState(NamedTuple):
     count: int
     momentum: Dict[str, torch.Tensor]
+
+
+def optimizer_states(opt_state) -> Tuple[FusedSGDState, ...]:
+    """The `FusedSGDState`s of a `TrainState.opt_state`: itself, or the GAN
+    step's (main, disc) pair, a plain tuple."""
+    return opt_state if type(opt_state) is tuple else (opt_state,)
+
+
+def at_count(opt_state, count: int):
+    """`opt_state` (one state or the GAN step's pair) at step `count`."""
+    states = tuple(o._replace(count=count)
+                   for o in optimizer_states(opt_state))
+    return states if type(opt_state) is tuple else states[0]
 
 
 class _FusedSGD:
@@ -223,5 +242,85 @@ def make_train_step(model: nn.Module, tx: _FusedSGD,
         metrics = dict(loss=total.detach(), **metrics)
         return state._replace(step=state.step + 1, opt_state=new_opt,
                               ema_params=ema), metrics
+
+    return step_fn
+
+
+# ---- adversarial (two-parameter-group) training ---------------------------
+
+def split_params(params: Dict[str, torch.Tensor]):
+    """(main, disc): the parameters outside and under the discriminators
+    (the top-level modules `DISC_KEYS`)."""
+    def is_disc(name):
+        return name.split('.', 1)[0] in DISC_KEYS
+    main = {n: p for n, p in params.items() if not is_disc(n)}
+    disc = {n: p for n, p in params.items() if is_disc(n)}
+    return main, disc
+
+
+def create_gan_train_state(model: nn.Module, spec: OptimizerSpec,
+                           frozen_stages: int = -1
+                           ) -> Tuple[TrainState, _FusedSGD, _FusedSGD]:
+    """The state over `model`'s parameters, with `opt_state` the pair
+    (main, disc), and the two optimizers, both of `spec`: the main group
+    with the stem and the first `frozen_stages` trunk stages frozen, the
+    discriminators with nothing frozen. No EMA."""
+    params = dict(model.named_parameters())
+    main, disc = split_params(params)
+    tx_main = _FusedSGD(spec, frozen_mask(main, frozen_stages))
+    tx_disc = _FusedSGD(spec, frozen_mask(disc, -1))
+    state = TrainState(0, params, (tx_main.init(main), tx_disc.init(disc)))
+    return state, tx_main, tx_disc
+
+
+def make_gan_train_step(model: nn.Module, tx_main: _FusedSGD,
+                        tx_disc: _FusedSGD) -> Callable:
+    """The step of the CycleGAN detectors (CyDA / CyCADA), with
+    `make_train_step`'s signature: one forward, then two gradients of it —
+    the sum of the terms not named `disc_*` with respect to the main
+    parameters only, and the sum of the `disc_*` terms with respect to the
+    discriminators only (the generator's GAN term reaches the
+    discriminators too, and must not train them) — each applied by its own
+    SGD, global-norm clip included. The batch statistics are the forward's.
+    Metric `loss` is the sum of both totals. Like the JAX step it has no
+    NaN guard and no EMA. The two backwards are the profiler ranges
+    `step/backward` and `step/backward_disc`."""
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                sampler_priorities: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model.train()
+        losses = model(batch, train=True, generator=generator,
+                       sampler_priorities=sampler_priorities)
+        g_total = sum(v for k, v in losses.items()
+                      if not k.startswith('disc_'))
+        d_total = sum(v for k, v in losses.items() if k.startswith('disc_'))
+        main, disc = split_params(state.params)
+        opt_main, opt_disc = state.opt_state
+        groups = []
+        for total, group, retain, stage in (
+                (g_total, main, True, 'step/backward'),
+                (d_total, disc, False, 'step/backward_disc')):
+            with record_function(stage):
+                wrt = [n for n, p in group.items() if p.requires_grad]
+                grads = torch.autograd.grad(
+                    total, [group[n] for n in wrt], retain_graph=retain,
+                    allow_unused=True)
+                groups.append(dict(zip(wrt, grads)))
+        with record_function('step/sgd_guard_ema'):
+            new_main, opt_main = tx_main.fused_apply(groups[0], opt_main,
+                                                     main)
+            new_disc, opt_disc = tx_disc.fused_apply(groups[1], opt_disc,
+                                                     disc)
+            with torch.no_grad():
+                for new in (new_main, new_disc):
+                    for n, p in new.items():
+                        if p is not state.params[n]:
+                            state.params[n].copy_(p)
+        metrics = dict(loss=(g_total + d_total).detach(),
+                       **{k: v.detach() for k, v in losses.items()})
+        return state._replace(step=state.step + 1,
+                              opt_state=(opt_main, opt_disc)), metrics
 
     return step_fn

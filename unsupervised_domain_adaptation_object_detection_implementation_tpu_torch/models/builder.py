@@ -6,20 +6,28 @@ package's `models/builder.py`, for the detector types this port has).
 roi_head=..., train_cfg=..., test_cfg=...)`) or flat module kwargs, and
 translates it as the JAX builder does. Unknown detector types raise, and so
 does any config that asks for a part not ported yet.
+
+Beside the nested parts, a nested config's `gen_blocks` (the CycleGAN
+generators' depth, `model.gen_blocks=2` on a CyDA config) reaches a
+detector that takes it; the JAX builder ignores it there. `canvas`, the static training canvas
+that sizes the MHSA heads, comes from the caller: `apis.init_trainer` and
+`apis.init_detector` pass `train_canvas(cfg)`, the train pipeline's `Pad`
+size.
 """
 
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..utils.device import resolve_device
 from ..utils.registry import DETECTORS
 from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
-from .detectors import (da_faster_rcnn, faster_rcnn,  # noqa: F401 (register)
-                        faster_rcnn_fpn, mask_rcnn, mask_rcnn_c4)
+from .detectors import (cyda_faster_rcnn,  # noqa: F401 (register)
+                        da_faster_rcnn, faster_rcnn, faster_rcnn_fpn,
+                        mask_rcnn, mask_rcnn_c4)
 from .detectors.faster_rcnn import AnchorConfig
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
 
@@ -42,6 +50,8 @@ _REFERENCE_DETECTOR_MAP = {
     'DAFasterRCNN_Tri': ('DAFasterRCNN', dict(variant='tri',
                                               instance_mode='grouped',
                                               group_k=10)),
+    'CyDAFasterRCNN': ('CyDAFasterRCNN', {}),
+    'CyCADA': ('CyDAFasterRCNN', dict(pretraining=True)),
 }
 
 # reference bbox_head.loss_bbox types that decode boxes (the IoU family);
@@ -58,7 +68,8 @@ def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
             or backbone.get('trunk_type', 'resnet') != 'resnet':
         raise NotImplementedError(
             f'backbone {backbone.get("type")!r}: only the ResNet trunk is '
-            'ported')
+            'ported; the Swin trunk (DeepAlign-Swin) comes with the rest of '
+            'the DA family, ROADMAP.md Queue 1')
     if 'depth' in backbone:
         kwargs['backbone_depth'] = backbone['depth']
     if 'frozen_stages' in backbone:
@@ -136,6 +147,16 @@ def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return kwargs
 
 
+def _init_params(cls) -> Dict[str, inspect.Parameter]:
+    """The keyword parameters of `cls` and its bases (a subclass's
+    **kwargs reach its bases)."""
+    params = {}
+    for klass in reversed(cls.__mro__):
+        if '__init__' in vars(klass):
+            params.update(inspect.signature(klass.__init__).parameters)
+    return params
+
+
 def _flat_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Flat module kwargs read as the JAX builder reads them: a dict given
     for a NamedTuple field merges over the field's default, a list for a
@@ -145,11 +166,9 @@ def _flat_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
     dtype = kwargs.pop('dtype', 'float32')
     if str(dtype).replace('torch.', '') != 'float32':
         raise NotImplementedError(f'dtype {dtype!r}: only the float32 '
-                                  'compute path is ported')
-    params = {}                       # a subclass's **kwargs reach its bases
-    for klass in reversed(cls.__mro__):
-        if '__init__' in vars(klass):
-            params.update(inspect.signature(klass.__init__).parameters)
+                                  'compute path is ported; bf16 comes with '
+                                  'its own slice, ROADMAP.md Queue 1')
+    params = _init_params(cls)
     for name, value in kwargs.items():
         default = params[name].default if name in params else None
         if isinstance(value, dict) and hasattr(default, '_fields'):
@@ -162,11 +181,25 @@ def _flat_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
     return kwargs
 
 
+def train_canvas(cfg: Dict[str, Any]) -> Optional[Tuple[int, int]]:
+    """The static (H, W) canvas of the train pipeline's `Pad` step (the
+    first dataset's, for a `ConcatDataset`), or None without one."""
+    train = (cfg.get('data') or {}).get('train') or {}
+    if train.get('type') == 'ConcatDataset':
+        train = train['datasets'][0]
+    for t in train.get('pipeline', []) or []:
+        if t.get('type') == 'Pad' and t.get('size'):
+            return tuple(t['size'])
+    return None
+
+
 def build_detector(cfg: Dict[str, Any],
-                   device: Union[str, torch.device] = 'cuda'):
+                   device: Union[str, torch.device] = 'cuda',
+                   canvas: Optional[Tuple[int, int]] = None):
     """Build a detector module from a config dict (nested or flat) on
     `device` (CUDA unless the caller asks for the CPU), with torch's default
-    initialization; `apis.init_detector` sets the weights."""
+    initialization; `apis.init_detector` sets the weights. `canvas` (H, W)
+    goes to a detector that takes one."""
     device = resolve_device(device)
     cfg = dict(cfg)
     det_type = cfg.pop('type')
@@ -174,10 +207,16 @@ def build_detector(cfg: Dict[str, Any],
         raise KeyError(f'detector type {det_type!r} is not ported; have '
                        f'{sorted(_REFERENCE_DETECTOR_MAP)}')
     reg_name, extra = _REFERENCE_DETECTOR_MAP[det_type]
+    cls = DETECTORS.get(reg_name)
+    params = _init_params(cls)
     if any(k in cfg for k in ('backbone', 'rpn_head', 'roi_head')):
         kwargs = _nested_to_kwargs(cfg)
+        if 'gen_blocks' in cfg and 'gen_blocks' in params:
+            kwargs['gen_blocks'] = cfg['gen_blocks']
     else:
-        kwargs = _flat_kwargs(DETECTORS.get(reg_name), cfg)
+        kwargs = _flat_kwargs(cls, cfg)
+    if canvas is not None and 'canvas' in params:
+        kwargs['canvas'] = tuple(canvas)
     kwargs.update(extra)
     with device:
-        return DETECTORS.get(reg_name)(**kwargs)
+        return cls(**kwargs)

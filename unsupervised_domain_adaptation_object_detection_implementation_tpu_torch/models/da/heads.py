@@ -1,10 +1,11 @@
 """Adversarial domain-alignment heads behind a GRL (counterpart of the JAX
-package's `models/da/heads.py`: `GlobalAlignmentHead`, `PixelAlignmentHead`
-and `InstanceAlignmentHead`; `SRMHead`, `ImageAlignmentHead` and the MHSA
-attention belong to other variants and wait for them).
+package's `models/da/heads.py`: `GlobalAlignmentHead` with CBAM or MHSA
+attention, `SRMHead`, `PixelAlignmentHead`, `ImageAlignmentHead` and
+`InstanceAlignmentHead`).
 
 Every head emits logits. The map heads take the trunk's NCHW stage output;
-the pixel head returns its logit map as (B, H, W, 1), the JAX layout.
+the pixel and image heads return their logit maps as (B, H, W, 1), the JAX
+layout.
 Module names are the flax ones, and where flax gives a conv or dense a bias
 by default, so has the port. Dropout is flax's: keep probability 1 - rate,
 kept values scaled by 1 / (1 - rate).
@@ -12,27 +13,32 @@ kept values scaled by 1 / (1 - rate).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..layers.attention import CBAM, NonLocalBlock
+from ..layers.attention import CBAM, MHSA, NonLocalBlock
 from ..layers.grl import gradient_reverse
 from ..layers.norm import BatchNorm
 
 
 class GlobalAlignmentHead(nn.Module):
-    """GRL → stride-2 conv → residual conv pair with CBAM → two stride-2
-    convs → global average pool → MLP → 2 domain logits."""
+    """GRL → stride-2 conv → residual conv pair with CBAM or MHSA → two
+    stride-2 convs → global average pool → MLP → 2 domain logits.
+
+    MHSA's relative position parameters have the size of the map after the
+    stride-2 conv, so `attention='mhsa'` needs `map_hw`, that size."""
 
     def __init__(self, channels: int, attention: Optional[str] = 'cbam',
-                 grl_weight: float = -1.0, dropout: float = 0.5):
+                 grl_weight: float = -1.0, dropout: float = 0.5,
+                 map_hw: Optional[Tuple[int, int]] = None):
         super().__init__()
-        if attention not in ('cbam', None):
-            raise NotImplementedError(
-                f'global head attention {attention!r}: only CBAM is ported '
-                '(MHSA comes with the Tri-attention variant)')
+        if attention not in ('cbam', 'mhsa', None):
+            raise ValueError(f'global head attention {attention!r}')
+        if attention == 'mhsa' and map_hw is None:
+            raise ValueError('an MHSA global head needs map_hw, the size of '
+                             'its attention map')
         c2, c4 = channels // 2, channels // 4
         self.grl_weight = grl_weight
         self.conv1 = nn.Conv2d(channels, c2, 3, stride=2, padding=1,
@@ -43,6 +49,7 @@ class GlobalAlignmentHead(nn.Module):
         self.conv3 = nn.Conv2d(c2, c2, 3, padding=1)
         self.bn3 = BatchNorm(c2)
         self.cbam = CBAM(c2) if attention == 'cbam' else None
+        self.mhsa = MHSA(c2, map_hw) if attention == 'mhsa' else None
         self.conv4 = nn.Conv2d(c2, c4, 3, stride=2, padding=1, bias=False)
         self.bn4 = BatchNorm(c4)
         self.conv5 = nn.Conv2d(c4, c4, 3, stride=2, padding=1, bias=False)
@@ -59,12 +66,39 @@ class GlobalAlignmentHead(nn.Module):
         t = self.drop(self.bn3(self.conv3(t)))
         if self.cbam is not None:
             t = self.cbam(t)
+        elif self.mhsa is not None:
+            t = self.mhsa(t)
         x = torch.relu(t + res)
         x = self.drop(torch.relu(self.bn4(self.conv4(x))))
         x = self.drop(torch.relu(self.bn5(self.conv5(x))))
         x = x.mean(dim=(2, 3))
         x = self.drop(torch.relu(self.fc1(x)))
         return self.fc2(x)
+
+
+class SRMHead(nn.Module):
+    """MAF's per-stage classifier: GRL → 1x1 conv to C/4 (BN, ReLU,
+    dropout) → 3x3 conv to 9·C/4 padded by 3, so the map grows by 4 (BN,
+    ReLU, dropout) → global average pool → FC → 2 domain logits."""
+
+    def __init__(self, channels: int, grl_weight: float = -1.0,
+                 dropout: float = 0.5):
+        super().__init__()
+        c4 = channels // 4
+        self.grl_weight = grl_weight
+        self.conv1 = nn.Conv2d(channels, c4, 1)
+        self.bn1 = BatchNorm(c4)
+        self.conv2 = nn.Conv2d(c4, c4 * 9, 3, padding=3)
+        self.bn2 = BatchNorm(c4 * 9)
+        self.fc = nn.Linear(c4 * 9, 2)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, H, W) → (B, 2)."""
+        x = gradient_reverse(x, self.grl_weight)
+        x = self.drop(torch.relu(self.bn1(self.conv1(x))))
+        x = self.drop(torch.relu(self.bn2(self.conv2(x))))
+        return self.fc(x.mean(dim=(2, 3)))
 
 
 class PixelAlignmentHead(nn.Module):
@@ -94,6 +128,22 @@ class PixelAlignmentHead(nn.Module):
             else:
                 x = torch.relu(x)
         return self.conv_out(x).permute(0, 2, 3, 1)
+
+
+class ImageAlignmentHead(nn.Module):
+    """DAF-original image-level map: GRL → 1x1 conv to 512, ReLU → 1x1
+    conv to one logit per pixel."""
+
+    def __init__(self, channels: int = 2048, grl_weight: float = -1.0):
+        super().__init__()
+        self.grl_weight = grl_weight
+        self.conv1 = nn.Conv2d(channels, 512, 1)
+        self.conv2 = nn.Conv2d(512, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, C, H, W) → (B, H, W, 1) logits."""
+        x = gradient_reverse(x, self.grl_weight)
+        return self.conv2(torch.relu(self.conv1(x))).permute(0, 2, 3, 1)
 
 
 class InstanceAlignmentHead(nn.Module):

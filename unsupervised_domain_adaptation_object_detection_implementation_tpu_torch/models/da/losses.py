@@ -1,6 +1,6 @@
 """Domain-alignment losses (counterpart of the JAX package's
-`models/da/losses.py`: `global_alignment_loss`, `patch_ls_loss` and
-`grouped_instance_loss`).
+`models/da/losses.py`: `global_alignment_loss`, `patch_ls_loss`,
+`image_da_loss`, `consistency_loss` and `grouped_instance_loss`).
 
 Gradients flow through the GRL heads by default (`quirk_detach=False`);
 `quirk_detach=True` reproduces the reference's detached numbers.
@@ -36,6 +36,27 @@ def patch_ls_loss(logit_map: torch.Tensor, domain: torch.Tensor,
     else:
         per_img_tgt = 0.5 * ((1.0 - p)**2).mean(dim=(1, 2, 3))
     return torch.where(domain == 1, per_img_tgt, per_img_src).sum()
+
+
+def image_da_loss(logit_map: torch.Tensor,
+                  domain: torch.Tensor) -> torch.Tensor:
+    """DAF-original image-level loss on the (B, H, W, 1) image head map:
+    the least-squares patch form, without the sigmoid-shift quirk."""
+    return patch_ls_loss(logit_map, domain)
+
+
+def consistency_loss(img_logit_map: torch.Tensor, ins_logits: torch.Tensor,
+                     ins_valid: torch.Tensor,
+                     domain: torch.Tensor) -> torch.Tensor:
+    """DAF's image/instance consistency regulariser: the root of the mean,
+    over valid RoIs, of (mean σ of the image map − σ of the RoI's target
+    logit)². `img_logit_map` (B, H, W, 1), `ins_logits` (B, S, 2),
+    `ins_valid` (B, S); `domain` is unused, as in the JAX function."""
+    img_prob = torch.sigmoid(img_logit_map).mean(dim=(1, 2, 3))     # (B,)
+    ins_prob = torch.sigmoid(ins_logits[..., 1])                     # (B, S)
+    v = ins_valid.to(ins_prob.dtype)
+    diff = (img_prob[:, None] - ins_prob) ** 2 * v
+    return torch.sqrt(diff.sum() / torch.clamp(v.sum(), min=1.0))
 
 
 def grouped_instance_loss(

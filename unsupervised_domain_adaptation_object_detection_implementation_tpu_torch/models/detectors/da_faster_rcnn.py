@@ -3,11 +3,18 @@
 
 Training (`loss`, reached through `forward(batch, train=True)`):
 supervised RPN and RoI losses masked to source images (`domain == 0`);
-image-level global CE per global tap (λ_global); the patch least-squares
-loss per pixel tap (λ_patch); and, with `instance_mode='grouped'`, the
-grouped fg/bg instance loss over the sampled RoIs' shared-FC features
-(λ_local). The loss keys are the JAX ones, `globle_da_loss` included.
-The 'split_plain' and 'plain' instance modes come with their variants.
+image-level global CE per global and SRM tap (λ_global, `globle_da_loss`);
+the patch least-squares loss per pixel tap (λ_patch, `patch_bottom_loss`);
+the least-squares image loss per image tap (λ_global, `img_da_loss`); and
+the instance loss over the sampled RoIs' shared-FC features (λ_local,
+`local_da_loss`): grouped fg/bg with k-means representatives
+('grouped'), fg/bg CE without grouping ('split_plain', MAF) or one CE over
+every RoI ('plain', DAF-original, with the consistency loss `consist_loss`
+(λ_consistency) against the first image map). The loss keys are the JAX
+ones, letter for letter.
+
+The MHSA taps of the 'tri' variant are built for `canvas`, the static
+training canvas (see `backbones/da_resnet.py`).
 
 At test time the DA detectors are plain Faster R-CNN: the trunk runs with
 `with_da=False` and the alignment heads are never run, as in the JAX
@@ -16,7 +23,7 @@ module's `predict`.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,8 +33,9 @@ from ...utils.registry import DETECTORS
 from ..backbones.da_resnet import VARIANT_TAPS, DAResNet
 from ..backbones.resnet import ResNet
 from ..da.heads import InstanceAlignmentHead
-from ..da.losses import (global_alignment_loss, grouped_instance_loss,
-                         patch_ls_loss)
+from ..da.losses import (consistency_loss, global_alignment_loss,
+                         grouped_instance_loss, image_da_loss, patch_ls_loss)
+from ..losses import softmax_cross_entropy
 from .faster_rcnn import FasterRCNN
 
 
@@ -48,12 +56,14 @@ class DAFasterRCNN(FasterRCNN):
     def __init__(self, variant: str = 'daf', instance_mode: str = 'grouped',
                  group_k: int = 20,
                  loss_weights: DALossWeights = DALossWeights(),
-                 quirk_detach: bool = False, **kwargs):
+                 quirk_detach: bool = False,
+                 canvas: Tuple[int, int] = (512, 1024), **kwargs):
         if variant not in VARIANT_TAPS:
             raise ValueError(f'unknown DA variant {variant!r}')
         if instance_mode not in ('grouped', 'split_plain', 'plain', 'none'):
             raise ValueError(f'unknown instance_mode {instance_mode!r}')
         self.variant = variant
+        self.canvas = tuple(canvas)
         super().__init__(**kwargs)
         self.instance_mode = instance_mode
         self.group_k = group_k
@@ -67,7 +77,7 @@ class DAFasterRCNN(FasterRCNN):
 
     def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
         return DAResNet(depth=depth, frozen_stages=frozen_stages,
-                        taps=VARIANT_TAPS[self.variant])
+                        taps=VARIANT_TAPS[self.variant], canvas=self.canvas)
 
     def _trunk(self) -> ResNet:
         return self.backbone.trunk
@@ -80,10 +90,6 @@ class DAFasterRCNN(FasterRCNN):
              generator: Optional[torch.Generator] = None,
              sampler_priorities: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:
-        if self.instance_mode in ('split_plain', 'plain'):
-            raise NotImplementedError(
-                f'instance_mode {self.instance_mode!r} is not ported yet; it '
-                'comes with the MAF / DAF-original variants')
         domain = batch['domain']
         source_mask = (domain == 0).float()
         with record_function('step/trunk_and_grl_heads'):
@@ -93,22 +99,69 @@ class DAFasterRCNN(FasterRCNN):
             feat, batch, source_mask, generator, sampler_priorities)
 
         with record_function('step/da_losses'):
-            w = self.loss_weights
-            global_terms, patch_terms = [], []
-            for name, out in da_out.items():
-                if name.startswith('global'):
-                    global_terms.append(global_alignment_loss(
-                        out, domain, self.quirk_detach))
-                elif name.startswith('pixel'):
-                    patch_terms.append(patch_ls_loss(
-                        out, domain, quirk_sigmoid_shift=self.quirk_detach))
-            if global_terms:
-                losses['globle_da_loss'] = w.global_ * sum(global_terms)
-            if patch_terms:
-                losses['patch_bottom_loss'] = w.patch * sum(patch_terms)
-            if self.instance_mode == 'grouped':
-                losses['local_da_loss'] = w.local * grouped_instance_loss(
-                    self.local_da_fore, self.local_da_back, shared_feat, cls,
-                    sampled.label_valid, domain, k=self.group_k,
-                    quirk_detach=self.quirk_detach)
+            losses.update(self._da_losses(da_out, domain, sampled, cls,
+                                          shared_feat))
         return losses
+
+    def _da_losses(self, da_out, domain, sampled, cls, shared_feat):
+        """The alignment terms: per tap kind, then the instance mode's."""
+        w = self.loss_weights
+        losses = {}
+        global_terms, patch_terms, image_maps = [], [], []
+        for name, out in da_out.items():
+            if name.startswith(('global', 'srm')):
+                global_terms.append(global_alignment_loss(
+                    out, domain, self.quirk_detach))
+            elif name.startswith('pixel'):
+                patch_terms.append(patch_ls_loss(
+                    out, domain, quirk_sigmoid_shift=self.quirk_detach))
+            elif name.startswith('image'):
+                image_maps.append(out)
+        if global_terms:
+            losses['globle_da_loss'] = w.global_ * sum(global_terms)
+        if patch_terms:
+            losses['patch_bottom_loss'] = w.patch * sum(patch_terms)
+        if image_maps:
+            losses['img_da_loss'] = w.global_ * sum(
+                image_da_loss(m, domain) for m in image_maps)
+
+        valid = sampled.label_valid
+        if self.instance_mode == 'grouped':
+            losses['local_da_loss'] = w.local * grouped_instance_loss(
+                self.local_da_fore, self.local_da_back, shared_feat, cls,
+                valid, domain, k=self.group_k,
+                quirk_detach=self.quirk_detach)
+        elif self.instance_mode == 'split_plain':
+            losses['local_da_loss'] = w.local * self._split_plain_loss(
+                shared_feat, cls, valid, domain)
+        elif self.instance_mode == 'plain':
+            b, s = valid.shape
+            ins_logits = self.local_da(
+                shared_feat.reshape(-1, shared_feat.shape[-1])).reshape(b, s, 2)
+            dom_t = domain[:, None].expand(b, s)
+            v = valid.float()
+            ce = softmax_cross_entropy(ins_logits, dom_t) * v
+            losses['local_da_loss'] = w.local * ce.sum() / torch.clamp(
+                v.sum(), min=1.0)
+            if image_maps:
+                losses['consist_loss'] = w.consistency * consistency_loss(
+                    image_maps[0], ins_logits, valid, domain)
+        return losses
+
+    def _split_plain_loss(self, shared_feat, cls, valid, domain):
+        """MAF's fg/bg split instance CE without k-means grouping: each RoI
+        is foreground when its softmax background probability is at most
+        0.5; the fore and back heads see every RoI, and each CE is averaged
+        over its own valid RoIs."""
+        b, s, d = shared_feat.shape
+        probs = torch.softmax(cls.float(), dim=-1)
+        is_fg = (1.0 - probs[..., -1]) >= 0.5
+        dom_t = domain[:, None].expand(b, s).reshape(-1)
+        flat = shared_feat.reshape(-1, d)
+        total = 0.0
+        for fg, head in ((True, self.local_da_fore),
+                         (False, self.local_da_back)):
+            mask = (valid & (is_fg == fg)).reshape(-1).float()
+            ce = softmax_cross_entropy(head(flat), dom_t) * mask
+            total = total + ce.sum() / torch.clamp(mask.sum(), min=1.0)
+        return total

@@ -1,8 +1,10 @@
 """Attention blocks of the DA heads (counterpart of the JAX package's
-`models/layers/attention.py`: `CBAM` and `NonLocalBlock`; `MHSA` waits for
-the Tri-attention variant)."""
+`models/layers/attention.py`: `CBAM`, `NonLocalBlock` and `MHSA`)."""
 
 from __future__ import annotations
+
+import math
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -49,3 +51,46 @@ class NonLocalBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attn = torch.softmax(self.theta(x) @ self.phi(x).T, dim=-1)
         return x + self.out(attn @ self.g(x))
+
+
+class MHSA(nn.Module):
+    """Multi-head self-attention over the pixels of an NCHW map with 2D
+    relative position terms: 1x1 q/k/v convs, logits q·kᵀ + q·posᵀ with
+    pos = rel_h + rel_w, softmax of the logits over √dh, then the weighted
+    v. `rel_h` (h, 1, c) and `rel_w` (1, w, c) are raw parameters in the
+    JAX layout, so the map size is fixed when the module is built
+    (`map_hw`); the JAX module draws them from the first batch it sees. A
+    map of another size raises. Channels split into heads head-major, as
+    the JAX reshape (c → heads, dh) does."""
+
+    def __init__(self, channels: int, map_hw: Tuple[int, int],
+                 num_heads: int = 4):
+        super().__init__()
+        self.num_heads = num_heads
+        self.map_hw = tuple(map_hw)
+        h, w = self.map_hw
+        self.q = nn.Conv2d(channels, channels, 1)
+        self.k = nn.Conv2d(channels, channels, 1)
+        self.v = nn.Conv2d(channels, channels, 1)
+        self.rel_h = nn.Parameter(torch.zeros(h, 1, channels))
+        self.rel_w = nn.Parameter(torch.zeros(1, w, channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        if (h, w) != self.map_hw:
+            raise ValueError(f'MHSA built for a {self.map_hw} map, given '
+                             f'{(h, w)}: its relative position parameters '
+                             'have the map size of the training canvas')
+        heads = self.num_heads
+        dh = c // heads
+
+        def split(t):                                  # → (B, heads, HW, dh)
+            return t.reshape(b, heads, dh, h * w).transpose(2, 3)
+
+        qs, ks, vs = split(self.q(x)), split(self.k(x)), split(self.v(x))
+        pos = (self.rel_h + self.rel_w).reshape(h * w, heads, dh)
+        logits = qs @ ks.transpose(2, 3) + \
+            torch.einsum('bhqd,khd->bhqk', qs, pos)
+        attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
+        out = attn @ vs                                # (B, heads, HW, dh)
+        return out.transpose(2, 3).reshape(b, c, h, w)

@@ -1,9 +1,11 @@
-"""Batch norms (counterpart of the JAX package's `models/layers/norm.py`).
+"""Norms (counterpart of the JAX package's `models/layers/norm.py`).
 
 - `FrozenBatchNorm`: the trunk runs with `norm_eval=True`; running
   statistics never change, the affine scale/bias are parameters.
 - `BatchNorm`: the live norm of the DA heads, with `flax.linen.BatchNorm`'s
   semantics (the JAX heads use flax's module directly).
+- `InstanceNorm`: the CycleGAN's norm, `flax.linen.GroupNorm` with one
+  channel a group (JAX `models/da/cyclegan.py:_inorm`).
 
 Parameter and buffer names (`scale`, `bias`, `mean`, `var`) are the flax
 ones, so converted weights and `batch_stats` load by name.
@@ -73,3 +75,29 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """Instance norm with `flax.linen.GroupNorm(num_groups=None,
+    group_size=1)`'s numerics, the CycleGAN's norm: per image and channel
+    over the spatial dims, the fast variance E[x²] − E[x]² clamped at 0,
+    ε 1e-6 (torch's `GroupNorm`/`InstanceNorm2d` use 1e-5 and the two-pass
+    variance), then y = (x − mean) · rsqrt(var + ε) · scale + bias, in f32
+    at least (f64 stays f64, as in flax). Channels are dim 1."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.features = features
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dims = tuple(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dims, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.view(shape)
+        return ((xf - mean) * mul + self.bias.view(shape)).to(x.dtype)

@@ -9,7 +9,8 @@ from torch import nn
 
 from .dense_heads.rpn_head import RPNHead
 from .detectors.mask_rcnn_c4 import C4BBoxHead
-from .layers.norm import BatchNorm, FrozenBatchNorm
+from .layers.attention import MHSA
+from .layers.norm import BatchNorm, FrozenBatchNorm, InstanceNorm
 from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
 
@@ -20,7 +21,9 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
     """Fill `model` in place: conv and linear weights ~ N(0, 1/fan_in)
     (flax's lecun_normal scale, which keeps activations of order one through
     a frozen-BN ResNet), biases 0, frozen and live BN (the DA heads') as
-    the identity (scale 1, bias 0, mean 0, var 1); then the RPN's convs
+    the identity (scale 1, bias 0, mean 0, var 1), the CycleGAN's instance
+    norms likewise (scale 1, bias 0), MHSA's relative position parameters
+    ~ N(0, 0.02²) as flax draws them; then the RPN's convs
     ~ N(0, 0.01²) and the box heads' (Shared2FC, and C4's pooled one)
     classifier ~ N(0, 0.01²) and regressor ~ N(0, 0.001²), as the reference
     (mmdet's `RPNHead` and `BBoxHead`) initialises them. At the lecun scale
@@ -41,6 +44,12 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
             m.bias.zero_()
             m.mean.zero_()
             m.var.fill_(1.0)
+        elif isinstance(m, InstanceNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, MHSA):
+            m.rel_h.normal_(0.0, 0.02, generator=generator)
+            m.rel_w.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, FCNMaskHead) and m.normed_predictor:
             k = m.conv_logits_kernel
             k.normal_(0.0, 1.0 / math.sqrt(k.shape[0]), generator=generator)

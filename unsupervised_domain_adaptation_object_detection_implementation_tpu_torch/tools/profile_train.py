@@ -22,7 +22,8 @@ and reports:
   or trunk and FPN neck; RPN head and loss, proposals, RoI sampling,
   RoIAlign, C4's res5 head, box head and loss, the mask branch's RoIAlign,
   targets and head with its loss, DA losses, backward, SGD with the guard
-  and the EMA): each
+  and the EMA; for CyDA / CyCADA the CycleGAN's forward and the
+  discriminators' backward apart from the rest): each
   stage's host time (the profiler roughly doubles it), and the device
   time of the work launched while it was open; then the device busy time
   per step, its idle share of the unprofiled step, and the kernels that
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from ..apis import init_trainer
+from ..apis.train_state import at_count
 
 STAGE = 'step/'
 PROFILED_STEPS = 3
@@ -150,7 +152,7 @@ def main(argv=None):
     trainer = init_trainer(args.config, device=args.device, seed=args.seed,
                            steps_per_epoch=STEPS_PER_EPOCH)
     state = trainer.state
-    state = state._replace(opt_state=state.opt_state._replace(count=500))
+    state = state._replace(opt_state=at_count(state.opt_state, 500))
     batch = demo_batch(b=args.batch, h=args.size[0], w=args.size[1],
                        num_classes=trainer.model.num_classes, seed=args.seed,
                        device=args.device,

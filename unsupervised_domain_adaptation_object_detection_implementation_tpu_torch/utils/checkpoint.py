@@ -6,8 +6,10 @@ A checkpoint is a directory `ckpt_<tag>` holding
 - `state.pt`, one `torch.save` of a dict of tensors and ints: `params` and
   `buffers` (the model's state dict split in two; the buffers carry the
   frozen BN and the DA heads' BatchNorm statistics), `momentum` (SGD's, of
-  the trainable parameters), `ema_params` (or None), `step` and
-  `opt_count`;
+  the trainable parameters; for the CycleGAN detectors' two optimizers,
+  both groups' buffers under their parameters' names, which do not
+  overlap), `ema_params` (or None), `step` and `opt_count` (the
+  optimizers' step count; the two groups count together);
 - `graft_meta.json`, `{"epoch": ..., "classes": [...]}`, as the JAX package
   writes it.
 
@@ -31,14 +33,19 @@ META_FILE = 'graft_meta.json'
 
 def train_state_dict(model: nn.Module, state) -> Dict:
     """The checkpoint payload of a `TrainState` over `model`."""
+    # imported here: `apis` imports this module
+    from ..apis.train_state import optimizer_states
     params = {n: p.detach() for n, p in state.params.items()}
+    opts = optimizer_states(state.opt_state)
+    if len({o.count for o in opts}) != 1:
+        raise ValueError(f'optimizer counts differ: {[o.count for o in opts]}')
     return dict(
         step=int(state.step),
         params=params,
         buffers={n: b for n, b in model.state_dict().items()
                  if n not in params},
-        momentum=dict(state.opt_state.momentum),
-        opt_count=int(state.opt_state.count),
+        momentum={n: m for o in opts for n, m in o.momentum.items()},
+        opt_count=int(opts[0].count),
         ema_params=None if state.ema_params is None
         else dict(state.ema_params))
 
@@ -101,15 +108,21 @@ def restore_train_state(model: nn.Module, state, ckpt: Dict):
     """A `TrainState` over `model` with every tensor of the checkpoint
     copied in place (parameters, buffers, momentum, EMA) and its step and
     optimizer count."""
+    from ..apis.train_state import at_count, optimizer_states
     load_weights(model, ckpt, ema=False)
-    for n, m in state.opt_state.momentum.items():
-        m.copy_(ckpt['momentum'][n])
+    opts = optimizer_states(state.opt_state)
+    names = [n for o in opts for n in o.momentum]
+    if set(names) != set(ckpt['momentum']):
+        raise KeyError('the checkpoint\'s momentum does not fit the '
+                       'trainer\'s optimizer')
+    for o in opts:
+        for n, m in o.momentum.items():
+            m.copy_(ckpt['momentum'][n])
     ema = state.ema_params
     if ema is not None:
         if ckpt.get('ema_params') is None:
             raise KeyError('the trainer keeps an EMA, the checkpoint has none')
         for n, e in ema.items():
             e.copy_(ckpt['ema_params'][n])
-    return state._replace(
-        step=int(ckpt['step']),
-        opt_state=state.opt_state._replace(count=int(ckpt['opt_count'])))
+    return state._replace(step=int(ckpt['step']), opt_state=at_count(
+        state.opt_state, int(ckpt['opt_count'])))

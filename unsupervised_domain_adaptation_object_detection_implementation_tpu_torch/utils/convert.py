@@ -10,14 +10,16 @@
 - `bias` → `bias`; BatchNorm `scale`/`bias` (params) and `mean`/`var`
   (batch_stats) keep their names, for the trunk's frozen BN and the DA
   heads' live BN alike;
-- the normed mask predictor's `conv_logits_kernel` (C, K), a raw
-  parameter, keeps its name and layout.
+- the CycleGAN's instance norms' `scale`/`bias` keep their names;
+- raw parameters keep their names and layouts: the normed mask
+  predictor's `conv_logits_kernel` (C, K) and MHSA's relative position
+  terms `rel_h` (h, 1, c) and `rel_w` (1, w, c).
 
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
 `backbone.trunk.layer1.0.conv1.weight`. Leaves with no counterpart in the
-model are returned, not dropped silently; for `DAFasterRCNN` with the 'daf'
-taps there are none.
+model are returned, not dropped silently; for every detector the port
+has (each DA variant, CyDA and CyCADA included) there are none.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], leaf: Any
             return f'{prefix}weight', value.transpose(3, 2, 0, 1)
         if name == 'kernel' and value.ndim == 2:
             return f'{prefix}weight', value.T
-        if name in ('bias', 'scale', 'conv_logits_kernel'):
+        if name in ('bias', 'scale', 'conv_logits_kernel', 'rel_h', 'rel_w'):
             return prefix + name, value
     elif collection == 'batch_stats' and name in ('mean', 'var'):
         return prefix + name, value
