@@ -135,11 +135,36 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    counterpart of each config: one train step on the card against the CPU,
    TF32 off (losses 1e-4 relative, parameters 1e-4 of scale). Per config:
    request ms, step ms (median, min–max) and peak GiB.
+17. bf16 — the bf16 compute path at full width: the flagship with
+   `model.dtype=bfloat16` and configs/faster_rcnn/faster_rcnn_r50_fpn_fp16_1x.py
+   with `model.dtype=bfloat16` (at score_thr 0.001, as C4) serve 4
+   requests each, with detections (launches as in 4;
+   the pair's bf16 RoI features on the last request's proposals within
+   TOL_BF16 of the plain version's); the flagship (bf16, 1 + 5 steps), the
+   FPN and Mask R-CNN FPN fp16 configs through their `fp16` blocks and
+   Mask R-CNN C4 (bf16; 1 + 3 and 1 + 2 steps), Tri-attention (bf16,
+   1 + 3) and CyDA (bf16, 1 + 2) train on 2 images of 512x1024, each with
+   finite losses and its launches as the f32 phases count them; after the
+   steps the frozen stem and layer1 unchanged and every other parameter
+   moved, parameters, gradients, momentum and EMA f32, the trunk's output
+   bf16, the DA heads' and the CycleGAN's f32. On the RoIs a trained step
+   samples, the pair at bf16 within TOL_BF16 and timed (DC5 C=2048 o=7,
+   FPN o=7 and mask features o=14 on four levels, C4 C=1024 o=14: entries
+   `roi_align_pyramid_{fwd,bwd}/{dc5,fpn,mask,c4}_bf16_step`, bytes at 2
+   an element and 4 for the backward's f32 buffer). Then bench.py's
+   protocol: the flagship step on 8 images of 512x1024, f32 then bf16, 1
+   warm-up and 3 timed steps each, img/s and peak GiB. Last, the tiny DC5
+   fixture and the tiny FPN at bf16, card against CPU (cuBLAS's
+   reduced-precision reduction off): trunk features, RPN logits and box
+   logits on seeded RoIs within TOL_BF16 of scale, and one train step with
+   the same sampler priorities and proposals, per-term losses within
+   TOL_BF16 relative.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
 
+import contextlib
 import gc
 import glob
 import json
@@ -167,6 +192,10 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.da
     decode_jpeg
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.dense_heads.rpn_head import \
     rpn_proposals
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
+    faster_rcnn as frcnn_mod
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
+    faster_rcnn_fpn as frcnn_fpn_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors.mask_rcnn import \
     paste_masks
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers.norm import \
@@ -340,24 +369,27 @@ def roi_align_taps(rois, h, w, out_size=7, sr=2, scale=1 / 16, aligned=True):
 
 
 def roi_align_work(rois, h, w, c, out_size=7, backward=False, scale=1 / 16,
-                   aligned=True):
+                   aligned=True, elem=4):
     """Bytes and operations this run's RoIAlign needs. Forward: the output
     written once, each touched feature pixel read once, the RoIs; one FMA
     per nonzero product and channel, one scale per output. Backward: the
-    output gradient read once, the feature gradient written once, the
-    RoIs (the zeroing pass that the kernel's atomics need is its own
-    overhead, not part of the function); one scale per gradient element,
-    one multiply and one add per nonzero product and channel."""
+    output gradient read once, the feature gradient written once (into the
+    kernel's f32 buffer, 4 bytes an element whatever the type), the RoIs
+    (the zeroing pass that the kernel's atomics need is its own overhead,
+    not part of the function); one scale per gradient element, one
+    multiply and one add per nonzero product and channel. `elem` is the
+    bytes of a feature element (2 for bf16)."""
     touched, products, _ = roi_align_taps(rois, h, w, out_size, scale=scale,
                                           aligned=aligned)
     b, n = rois.shape[:2]
     n_out = b * n * out_size * out_size * c
-    feat_bytes = b * h * w * c if backward else touched * c
-    return 4 * (n_out + feat_bytes) + rois.numel() * 4, \
+    feat_bytes = 4 * b * h * w * c if backward else elem * touched * c
+    return elem * n_out + feat_bytes + rois.numel() * 4, \
         2 * products * c + n_out
 
 
-def roi_align_fpn_work(rois, levels, sizes, c, out_size=7, backward=False):
+def roi_align_fpn_work(rois, levels, sizes, c, out_size=7, backward=False,
+                       elem=4):
     """`roi_align_work` of the multi-level RoIAlign: each RoI's taps on its
     own level; the forward reads the touched pixels of every level, the
     backward writes every level's gradient once; the levels are read too."""
@@ -371,9 +403,9 @@ def roi_align_fpn_work(rois, levels, sizes, c, out_size=7, backward=False):
         touched, products = touched + t, products + p
     b, n = rois.shape[:2]
     n_out = b * n * out_size * out_size * c
-    feat_bytes = sum(b * h * w * c for h, w in sizes) if backward else \
-        touched * c
-    return 4 * (n_out + feat_bytes) + (rois.numel() + levels.numel()) * 4, \
+    feat_bytes = 4 * sum(b * h * w * c for h, w in sizes) if backward else \
+        elem * touched * c
+    return elem * n_out + feat_bytes + (rois.numel() + levels.numel()) * 4, \
         2 * products * c + n_out
 
 
@@ -759,7 +791,7 @@ def _serve(card, config, label, expect, overrides=None, n_requests=4,
         f'{np.mean(latencies):.2f}; {2 * n_requests / total_s:.2f} img/s; '
         f'peak memory {peak / 2**30:.2f} GiB; launches {launches} [{card}]')
     if stats is not None:
-        stats.update(latencies=latencies, peak=peak)
+        stats.update(latencies=latencies, peak=peak, dets=n_dets)
     return bundle, requests, launches
 
 
@@ -828,9 +860,10 @@ def phase_fpn_serving(card, kernels):
 
 
 def _train(card, config, steps_per_epoch, label, counters, batch=None,
-           steps=5, keys=None):
-    """`init_trainer` on `config` (full width, f32, seeded random weights)
-    and 1 warm-up + `steps` timed steps past the lr warmup on `batch` (by
+           steps=5, keys=None, overrides=None):
+    """`init_trainer` on `config` (full width, seeded random weights; with
+    `overrides` merged in; f32 unless the config asks for bf16) and 1
+    warm-up + `steps` timed steps past the lr warmup on `batch` (by
     default the seeded batch of 2 images of 512x1024). With `keys`, each
     step's loss terms must be exactly those. `counters` maps a kernel's
     name to (its launch counter, launches per step): each step must launch
@@ -842,7 +875,9 @@ def _train(card, config, steps_per_epoch, label, counters, batch=None,
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    trainer = init_trainer(config, device='cuda', seed=0,
+    cfg = Config.fromfile(config)
+    cfg.merge_from_dict(overrides or {})
+    trainer = init_trainer(cfg, device='cuda', seed=0,
                            steps_per_epoch=steps_per_epoch)
     params = trainer.state.params
     torch.cuda.synchronize()
@@ -2218,6 +2253,355 @@ def phase_da_family_reference():
         phase_reference_train(cfg, f'tiny {label} (R18)')
 
 
+# ---- the bf16 compute path -------------------------------------------------
+
+BF16 = {'model.dtype': 'bfloat16'}
+FPN_FP16 = 'configs/faster_rcnn/faster_rcnn_r50_fpn_fp16_1x.py'
+MASK_FP16 = 'configs/mask_rcnn/mask_rcnn_r50_fpn_fp16_1x.py'
+TRI = 'configs/da/faster_rcnn_r50_tri_c2f.py'
+CYDA = 'configs/da/faster_rcnn_r50_cyda_c2f.py'
+# the pair's in-model bf16 regimes: (forward entry, backward entry, lines
+# of the JAX kernels they replace), each held and timed on the RoIs a
+# trained bf16 step samples
+BF16_REGIMES = {
+    'dc5': ('roi_align_pyramid_fwd/dc5_bf16_step',
+            'roi_align_pyramid_bwd/dc5_bf16_step', 237, 303),
+    'fpn': ('roi_align_pyramid_fwd/fpn_bf16_step',
+            'roi_align_pyramid_bwd/fpn_bf16_step', 1181, 1121),
+    'mask': ('roi_align_pyramid_fwd/mask_bf16_step',
+             'roi_align_pyramid_bwd/mask_bf16_step', 944, 889),
+    'c4': ('roi_align_pyramid_fwd/c4_bf16_step',
+           'roi_align_pyramid_bwd/c4_bf16_step', 434, 487),
+}
+# bench.py's protocol: the flagship train step on 8 images of 512x1024
+BENCH_BATCH = 8
+
+
+def _all_f32(label, state):
+    """Parameters, gradients, momentum (both groups of a GAN step) and EMA
+    are f32; raises otherwise. Returns how many tensors were checked."""
+    opt = state.opt_state if not hasattr(state.opt_state, 'momentum') \
+        else (state.opt_state,)
+    groups = dict(
+        parameter=list(state.params.values()),
+        gradient=[p.grad for p in state.params.values()
+                  if p.grad is not None],
+        momentum=[m for o in opt for m in o.momentum.values()],
+        EMA=list((state.ema_params or {}).values()))
+    for what, tensors in groups.items():
+        for t in tensors:
+            if t.dtype != torch.float32:
+                raise RuntimeError(f'{label}: a {what} in {t.dtype}')
+    return sum(len(t) for t in groups.values())
+
+
+def _compute_types(label, model, batch):
+    """The trunk (and neck) answer in bf16, the DA heads (on the bf16
+    taps) and the CycleGAN in f32; raises otherwise. Runs the model in eval
+    mode, so no statistic moves."""
+    model.eval()
+    try:
+        with torch.no_grad():
+            feats = model.extract_feat(batch['image'])
+            feats = feats if isinstance(feats, tuple) else (feats,)
+            heads = {}
+            if hasattr(model.backbone, 'taps'):
+                _, heads = model.backbone(
+                    batch['image'].to(model.dtype).permute(0, 3, 1, 2))
+            gan = model.translate(batch) if hasattr(model, 'translate') \
+                else None
+    finally:
+        model.train()
+    types = {f.dtype for f in feats}
+    if model.dtype != torch.bfloat16 or types != {torch.bfloat16}:
+        raise RuntimeError(f'{label}: model {model.dtype}, features {types}')
+    if any(v.dtype != torch.float32 for v in heads.values()) or (
+            gan is not None and gan.dtype != torch.float32):
+        raise RuntimeError(f'{label}: a DA head or the CycleGAN not in f32')
+    return (f'features {len(feats)} x bf16, {len(heads)} DA heads f32'
+            + (', CycleGAN f32' if gan is not None else ''))
+
+
+def bf16_step_kernels(regime, model, batch):
+    """The pair at bf16 against its plain version on the RoIs that a step
+    of the trained bf16 `model` samples from `batch`, on its own bf16 maps:
+    forward and backward (a seeded bf16 cotangent) within TOL_BF16, then
+    both timed beside the plain version. Bytes at 2 an element, 4 for the
+    backward's f32 buffer. Returns the two entries."""
+    fwd_name, bwd_name, fwd_line, bwd_line = BF16_REGIMES[regime]
+    maps, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    one = regime in ('dc5', 'c4')
+    maps = [maps] if one else list(maps)
+    if any(m.dtype != torch.bfloat16 for m in maps):
+        raise RuntimeError(f'{regime}: RoIAlign maps not in bf16')
+    levels = None if one else roi_align.roi_levels(rois, 4).contiguous()
+    scales = (1 / 16,) if one else FPN_SCALES
+    out_size = 14 if regime in ('mask', 'c4') else 7
+    flatten = regime in ('dc5', 'fpn')
+    shapes = [tuple(m.shape) for m in maps]
+
+    def fwd():
+        return roi_align.roi_align_pyramid_cuda(maps, rois, levels, scales,
+                                                out_size, flatten=flatten)
+
+    def plain(fs):
+        if one:
+            return roi_align.batched_roi_align_plain(
+                fs[0], rois, 1 / 16, out_size, flatten=flatten)
+        return roi_align.batched_roi_align_fpn_plain(
+            fs, rois, out_size=out_size, flatten=flatten)
+
+    got = fwd()
+    what = f"bf16 on a step's {tuple(rois.shape[:2])} sampled RoIs"
+    err_f = _check(fwd_name, got, plain(maps), TOL_BF16, what)
+    grad = torch.randn(got.shape, generator=gen,
+                       device='cuda').to(torch.bfloat16)
+
+    def bwd():
+        return roi_align.roi_align_pyramid_bwd_cuda(
+            grad, rois, levels, shapes, scales, out_size, flatten=flatten)
+
+    fs = [m.detach().requires_grad_() for m in maps]
+    ref = torch.autograd.grad(plain(fs), fs, grad)
+    err_b = max(_check(bwd_name, g, r, TOL_BF16, f'{what}, level {i}')
+                for i, (g, r) in enumerate(zip(bwd(), ref)))
+    ms_f, ms_b = time_ms(fwd, 20), time_ms(bwd, 20)
+    plain_f = time_ms(lambda: plain(maps), 3, warmup=1)
+    plain_b = plain_backward_ms(plain, maps, grad)
+    sizes, c = [s[1:3] for s in shapes], shapes[0][3]
+    if one:
+        work_f = roi_align_work(rois, *sizes[0], c, out_size, elem=2)
+        work_b = roi_align_work(rois, *sizes[0], c, out_size, backward=True,
+                                elem=2)
+    else:
+        work_f = roi_align_fpn_work(rois, levels, sizes, c, out_size, elem=2)
+        work_b = roi_align_fpn_work(rois, levels, sizes, c, out_size,
+                                    backward=True, elem=2)
+    entries = [_entry(fwd_name, fwd_line, *work_f, max_abs_err=err_f,
+                      ms=ms_f, plain_ms=plain_f),
+               _entry(bwd_name, bwd_line, *work_b, max_abs_err=err_b,
+                      ms=ms_b, plain_ms=plain_b)]
+    for e, (nbytes, ops) in zip(entries, (work_f, work_b)):
+        log(f'kernels: {e["name"]} bf16 {shapes} C={c} o={out_size} x '
+            f'{rois.shape[0]}x{rois.shape[1]} rois: {e["ms"]:.4f} ms, '
+            f'plain {e["plain_ms"]:.4f} ms, bound {e["bound_ms"]:.4f} ms '
+            f'({e["bound_by"]}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} '
+            'GFLOP)')
+    return entries
+
+
+def _bf16_served_features(label, bundle, request, regime):
+    """The pair's bf16 RoI features against the plain version on the real
+    proposals of `request`."""
+    name = BF16_REGIMES[regime][0]
+    with torch.inference_mode():
+        batch, _ = prepare_batch(bundle, request)
+        model = bundle.model
+        feats = model.extract_feat(batch['image'])
+        proposals, _, valid = rpn_proposals(
+            *model.rpn_outputs(feats), batch['img_shape'], model.rpn_test_cfg)
+        maps = model.roi_maps(feats)
+        if regime == 'dc5':
+            got = dc5_fwd(maps, proposals)
+            ref = roi_align.batched_roi_align_plain(maps, proposals, 1 / 16,
+                                                    flatten=True)
+        else:
+            got = fpn_fwd(maps, proposals, roi_align.roi_levels(proposals, 4))
+            ref = roi_align.batched_roi_align_fpn_plain(maps, proposals,
+                                                        flatten=True)
+    if got.dtype != torch.bfloat16:
+        raise RuntimeError(f'{label}: RoI features in {got.dtype}')
+    _check(name, got, ref, TOL_BF16, f"bf16 on the last request's "
+           f'{int(valid.sum())} proposals')
+
+
+def phase_bf16(card, kernels):
+    """The bf16 compute path at full width: the flagship (model.dtype=
+    bfloat16) and the R50-FPN fp16 config (model.dtype=bfloat16) serve 4
+    requests each; the flagship, the FPN and Mask R-CNN FPN fp16 configs
+    (through their `fp16` blocks), Mask R-CNN C4, Tri-attention and CyDA
+    train (model.dtype=bfloat16 where no fp16 block). Launch counts, finite
+    losses, parameters moved and f32 state as the f32 phases check them;
+    the trunk in bf16, the DA heads and the CycleGAN in f32. The pair at
+    bf16 on each regime's trained step's RoIs (and on the served
+    proposals); then bench.py's protocol, batch 8, f32 against bf16."""
+    launches = {r: [0, 0] for r in BF16_REGIMES}
+    rows = []
+    # the FPN fp16 config's 80-class head scores every class ~1/81 with
+    # random weights, under its score_thr of 0.05: served at 0.001, as C4
+    for label, config, over, regime in (
+            ('bf16 serving', FLAGSHIP, BF16, 'dc5'),
+            ('bf16 fpn serving', FPN_FP16, dict(BF16, **C4_SERVING), 'fpn')):
+        stats = {}
+        bundle, requests, served = _serve(card, config, label,
+                                          SERVING_LAUNCHES, overrides=over,
+                                          stats=stats)
+        if not stats['dets']:
+            raise RuntimeError(f'{label}: no detection in any request')
+        launches[regime][0] += served['roi_align_pyramid_fwd']
+        _bf16_served_features(label, bundle, requests[-1], regime)
+        rows.append(f'{label} {config}: request ms mean '
+                    f'{np.mean(stats["latencies"]):.2f} '
+                    f'{[round(t, 2) for t in stats["latencies"]]}, peak '
+                    f'{stats["peak"] / 2**30:.2f} GiB')
+        del bundle
+        _free()
+    runs = (
+        ('bf16 train', FLAGSHIP, BF16, CITYSCAPES_STEPS, 'dc5', demo_batch,
+         5, STEP_LAUNCHES, FROZEN),
+        ('bf16 fpn train (fp16 block)', FPN_FP16, {}, COCO_STEPS, 'fpn',
+         demo_batch, 3, STEP_LAUNCHES, FPN_FROZEN),
+        ('bf16 mask train (fp16 block)', MASK_FP16, {}, COCO_STEPS, 'mask',
+         mask_batch, 3, MASK_STEP_LAUNCHES, FPN_FROZEN),
+        ('bf16 c4 train', C4, BF16, COCO_STEPS, 'c4',
+         lambda: demo_batch(mask_size=MASK_M), 2, C4_STEP_LAUNCHES,
+         FPN_FROZEN),
+        # 3 steps: Tri's background instance head gets its first gradient
+        # once the box classifier calls some RoIs background (step 3 here)
+        ('bf16 tri train', TRI, BF16, CITYSCAPES_STEPS, 'dc5', demo_batch,
+         3, STEP_LAUNCHES, FROZEN),
+        ('bf16 cyda train', CYDA, BF16, CITYSCAPES_STEPS, 'dc5', demo_batch,
+         2, STEP_LAUNCHES, FROZEN))
+    held = set()
+    for label, config, over, spe, regime, make_batch, steps, counters, \
+            frozen in runs:
+        batch = make_batch()
+        trainer, state, start, times, totals, peak = _train(
+            card, config, spe, label, counters, batch, steps=steps,
+            overrides=over)
+        launches[regime][0] += totals['roi_align_pyramid_fwd']
+        launches[regime][1] += totals['roi_align_pyramid_bwd']
+        moved = _moved(trainer.state.params, start, frozen, label)
+        n_f32 = _all_f32(label, state)
+        types = _compute_types(label, trainer.model, batch)
+        log(_train_summary(label, f'{config} bf16', times, peak, totals,
+                           card)
+            + f'; {moved} parameters moved, frozen ones unchanged; {n_f32} '
+            f'parameter, gradient, momentum and EMA tensors f32; {types}')
+        rows.append(f'{label} {config}: step ms median '
+                    f'{float(np.median(times)):.2f} (min {min(times):.2f} '
+                    f'max {max(times):.2f}), peak {peak / 2**30:.2f} GiB')
+        if regime not in held:
+            kb = fpn_level_batch() if regime == 'fpn' else batch
+            kernels += bf16_step_kernels(regime, trainer.model, kb)
+            held.add(regime)
+        del trainer, state, start
+        _free()
+    for label, over in (('bench f32', {}), ('bench bf16', BF16)):
+        trainer, state, start, times, totals, peak = _train(
+            card, FLAGSHIP, CITYSCAPES_STEPS, label, STEP_LAUNCHES,
+            demo_batch(b=BENCH_BATCH), steps=3, overrides=over)
+        if over:
+            launches['dc5'][0] += totals['roi_align_pyramid_fwd']
+            launches['dc5'][1] += totals['roi_align_pyramid_bwd']
+        med = float(np.median(times))
+        rows.append(f'{label}: {BENCH_BATCH} images 512x1024 a step, step '
+                    f'ms {[round(t, 2) for t in times]} median {med:.2f}, '
+                    f'{BENCH_BATCH * 1e3 / med:.2f} img/s, peak '
+                    f'{peak / 2**30:.2f} GiB')
+        del trainer, state, start
+        _free()
+    for regime, (fwd_name, bwd_name, _, _) in BF16_REGIMES.items():
+        _set_launches(kernels, fwd_name, launches[regime][0])
+        _set_launches(kernels, bwd_name, launches[regime][1])
+    for row in rows:
+        log(f'bf16 summary: {row} [{card}]')
+
+
+@contextlib.contextmanager
+def _pinned_proposals(fixed):
+    """The detectors' steps take `fixed` (proposals, scores, valid) in
+    place of their own, moved to the step's device: at bf16 the tiny RPN's
+    logits tie or sit an ulp apart by the hundred, and card and CPU round
+    their convolutions differently, so their own rankings would differ."""
+    saved = [(m, m.rpn_proposals) for m in (frcnn_mod, frcnn_fpn_mod)]
+    for m, _ in saved:
+        m.rpn_proposals = lambda cls, *a, **k: tuple(
+            t.to(cls.device) for t in fixed)
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.rpn_proposals = fn
+
+
+def phase_bf16_reference():
+    """The tiny DC5 fixture and the tiny FPN at bf16, card (cuDNN, cuBLAS
+    with f32 accumulation, the pair) against the CPU (plain versions) from
+    the same weights: trunk features, RPN logits and box logits on seeded
+    RoIs within TOL_BF16 of their scale; one train step (dropout off, the
+    same sampler priorities and proposals) with per-term losses within
+    TOL_BF16 relative."""
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    for label, cfg, hw, anchors, seed in (
+            ('tiny fixture bf16', _tiny_cfg(TINY, BF16), (64, 96),
+             6 * 4 * 6, 3),
+            ('tiny FPN bf16', _tiny_cfg(FPN, dict(FPN_TINY, **BF16)),
+             (128, 192), 3 * sum(-(-128 // st) * -(-192 // st)
+                                 for st in (4, 8, 16, 32, 64)),
+             FPN_TINY_SEED)):
+        cfg.merge_from_dict({'optimizer.lr': 0.002,
+                             'lr_config.warmup_ratio': 0.5})
+        fpn = cfg.model['type'] == 'FasterRCNNFPN'
+        models, outs = [], []
+        batch = demo_batch(2, *hw, g=6, num_classes=2, seed=4, device='cpu')
+        rois = (make_fpn_rois(gen, 2, 48, *hw) if fpn else
+                make_rois(gen, 2, 48, hw[0] // 16, hw[1] // 16)).cpu()
+        for device in ('cpu', 'cuda'):
+            model = init_detector(cfg, device='cpu', seed=seed).model
+            model = model.to(device)
+            models.append(model)
+            with torch.no_grad():
+                img = batch['image'].to(device)
+                feats = model.extract_feat(img)
+                cls, _, _ = model.rpn_outputs(feats)
+                box = model.bbox_head(model.roi_extract(
+                    model.roi_maps(feats), rois.to(device)))[0]
+            feats = feats if isinstance(feats, tuple) else (feats,)
+            if torch.backends.cuda.matmul.\
+                    allow_bf16_reduced_precision_reduction:
+                raise RuntimeError('a bf16 detector left cuBLAS '
+                                   'reduced-precision reductions on')
+            outs.append(dict(features=torch.cat(
+                [f.float().flatten() for f in feats]).cpu(),
+                rpn_logits=cls.float().cpu(), box_logits=box.float().cpu()))
+        for key in outs[0]:
+            _check(label, outs[1][key], outs[0][key], TOL_BF16,
+                   f'{key} card vs CPU')
+        trainers = [init_trainer(cfg, device=d, seed=seed, steps_per_epoch=1)
+                    for d in ('cpu', 'cuda')]
+        trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+        cpu_model = trainers[0].model
+        with torch.no_grad():
+            fixed = rpn_proposals(
+                *cpu_model.rpn_outputs(cpu_model.extract_feat(
+                    batch['image'])), batch['img_shape'],
+                cpu_model.rpn_proposal_cfg)
+        g = torch.Generator().manual_seed(5)
+        pri = dict(rpn=torch.rand(2, anchors, generator=g),
+                   rcnn=torch.rand(2, 6 + fixed[0].shape[1], generator=g))
+        losses = []
+        with _pinned_proposals(fixed):
+            for trainer in trainers:
+                for m in trainer.model.modules():
+                    if isinstance(m, torch.nn.Dropout):
+                        m.p = 0.0
+                dev = trainer.device
+                _, metrics = trainer.step(
+                    trainer.state, {k: v.to(dev) for k, v in batch.items()},
+                    sampler_priorities={k: v.to(dev) for k, v in pri.items()})
+                losses.append({k: float(v) for k, v in metrics.items()})
+        ref, got = losses
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in ref.items())
+        log(f'reference: {label} train step card vs CPU: losses '
+            f'{ {k: round(v, 5) for k, v in got.items()} }, worst relative '
+            f'loss difference {rel:.3e}')
+        if set(got) != set(ref) or not rel <= TOL_BF16:
+            raise RuntimeError(f'{label}: train step card vs CPU, losses '
+                               f'{rel}')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2239,6 +2623,8 @@ def main():
     phase_da_family(card, kernels)
     phase_gan_loop(card)
     phase_da_family_reference()
+    phase_bf16(card, kernels)
+    phase_bf16_reference()
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

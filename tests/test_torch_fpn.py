@@ -190,7 +190,7 @@ def test_converter_maps_every_leaf_at_full_width():
 
 
 @pytest.mark.parametrize('override,match', [
-    ({'dtype': 'bfloat16'}, 'float32'),
+    ({'dtype': 'float16'}, 'float32'),
     ({'neck_type': 'PAFPN'}, 'PAFPN'),
     ({'backbone_cfg': dict(type='ResNeXt')}, 'ResNet'),
     ({'roi_layer': 'dpool'}, 'roi_layer'),

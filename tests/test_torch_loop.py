@@ -331,7 +331,7 @@ def test_max_epochs_overrides_the_runner_not_the_callers_config(tmp_path):
     ({}, {'dist_params': dict(backend='nccl')}, 'dist_params'),
     ({}, {'load_submodule': dict(teacher='x')}, 'load_submodule'),
     (dict(pretrained_backbone='r50.pth'), {}, 'pretrained_backbone'),
-    ({}, {'fp16': dict(loss_scale=512.0)}, 'fp16'),
+    ({}, {'fp16': dict(loss_scale=512.0), 'model.dtype': 'float16'}, 'fp16'),
 ])
 def test_refused_options_raise(tmp_path, kwargs, cfg_over, match):
     cfg = tconfig.Config.fromfile(TINY)

@@ -330,7 +330,7 @@ def test_converter_maps_every_leaf_at_full_width(path, overrides, prefixes):
     ('MaskRCNN', {'backbone_cfg': dict(type='ResNeXt')}, 'ResNet'),
     ('MaskRCNN', {'roi_layer': 'dpool'}, 'roi_layer'),
     ('MaskRCNN', {'roi_train_cfg': dict(sampler_type='ohem')}, 'ohem'),
-    ('MaskRCNN', {'dtype': 'bfloat16'}, 'float32'),
+    ('MaskRCNN', {'dtype': 'float16'}, 'float32'),
     ('MaskRCNNC4', {'backbone_cfg': dict(type='ResNeXt')}, 'ResNet'),
     ('MaskRCNNC4', {'roi_train_cfg': dict(sampler_type='ohem')}, 'ohem'),
 ])

@@ -8,6 +8,11 @@ get the two-group step `make_gan_train_step`, whose optimizer is the pair
 no NaN guard, whatever the config asks; evaluation then uses the live
 parameters.
 
+A config's `fp16` block (`fp16 = dict(loss_scale=...)`) trains in bf16
+when the model config names no `dtype`, as the JAX package's fp16 gate
+does; `loss_scale` is ignored (bf16 has f32's exponent range). Serving
+(`apis.init_detector`) reads no `fp16`, as in the JAX package.
+
 `train_detector(cfg, work_dir)` is the config-driven loop on one device:
 the train set and its loader (two-stream for a source/target
 `ConcatDataset`), the trainer with the loader's epoch length, resume or
@@ -30,6 +35,7 @@ import torch
 
 from ..data import DataLoader, build_dataset
 from ..models.builder import build_detector, train_canvas
+from ..models.layers.precision import compute_dtype
 from ..models.weight_init import init_random_weights_
 from ..utils.checkpoint import (latest_checkpoint, load_checkpoint,
                                 load_weights, restore_train_state,
@@ -130,6 +136,16 @@ def ema_momentum_of(cfg: Config) -> Optional[float]:
     return momentum
 
 
+def train_model_cfg(cfg: Config) -> Dict:
+    """The model config a trainer builds: `cfg.model`, with
+    `dtype='bfloat16'` when the config has an `fp16` block and the model
+    names no dtype (the JAX package's fp16 gate)."""
+    model_cfg = dict(cfg.model)
+    if cfg.get('fp16') is not None and 'dtype' not in model_cfg:
+        model_cfg['dtype'] = 'bfloat16'
+    return model_cfg
+
+
 def init_trainer(config: Union[str, Config],
                  variables: Optional[Mapping] = None,
                  device: Union[str, torch.device] = 'cuda',
@@ -144,13 +160,14 @@ def init_trainer(config: Union[str, Config],
     the adversarial detectors (`optimizer_config.nan_guard` overrides).
     The CycleGAN detectors get the two-group step instead, with no EMA
     and no guard. The MHSA heads are sized for the train pipeline's `Pad`
-    canvas (`train_canvas`).
+    canvas (`train_canvas`). The compute type is the model config's
+    `dtype`, else bf16 under an `fp16` block (`train_model_cfg`).
     `steps_per_epoch`, the loader's length, turns epoch milestones into
     steps; a config with the epoch-based runner raises without it."""
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     spec = optimizer_spec(cfg, steps_per_epoch)
-    model = build_detector(cfg.model, device='meta',
+    model = build_detector(train_model_cfg(cfg), device='meta',
                            canvas=train_canvas(cfg))
     model = model.to_empty(device=device).to(memory_format=torch.channels_last)
     if variables is not None:
@@ -179,7 +196,8 @@ def init_trainer(config: Union[str, Config],
 
 def _refuse_unported(cfg: Config, pretrained_backbone, n_devices, launcher):
     """Raise on what the single-device loop does not port, each with its
-    reason."""
+    reason, before the loop makes its work dir: an unported compute type
+    (float16) among them."""
     refused = [
         (launcher not in (None, 'none'), f'launcher={launcher!r}: the port '
          'trains on one device; multi-GPU training comes with its own slice'),
@@ -193,13 +211,11 @@ def _refuse_unported(cfg: Config, pretrained_backbone, n_devices, launcher):
          'grafting a donor checkpoint into a submodule is not ported yet'),
         (bool(pretrained_backbone), 'pretrained_backbone: the repository '
          'holds no backbone weights; the port trains from seeded weights'),
-        (cfg.get('fp16') is not None, 'an `fp16` block: the port trains in '
-         'float32; mixed precision comes with the bf16 slice, ROADMAP.md '
-         'Queue 1'),
     ]
     for hit, reason in refused:
         if hit:
             raise NotImplementedError(reason)
+    compute_dtype(train_model_cfg(cfg).get('dtype'))
 
 
 @contextlib.contextmanager
@@ -260,8 +276,8 @@ def train_detector(cfg: Config, work_dir: str,
     what an uninterrupted one does; the loader's sampler and the datasets
     draw from `seed`.
 
-    Multi-device training, submodule grafting, pretrained backbones and
-    `fp16` raise NotImplementedError."""
+    Multi-device training, submodule grafting and pretrained backbones
+    raise NotImplementedError."""
     _refuse_unported(cfg, pretrained_backbone, n_devices, launcher)
     device = resolve_device(device)
     os.makedirs(work_dir, exist_ok=True)

@@ -176,6 +176,31 @@ struct Vec<__nv_bfloat16, 8> {
   }
 };
 
+// Four bf16 channels, one 8-byte load: the backward's bf16 path, so that a
+// thread adds one float4 into the f32 buffer per vector, as the f32 path
+// does, with as many threads; with 8 channels a thread made two float4
+// reds and the launch half the threads (0.817 against 0.438 ms on a DC5
+// step's RoIs, tools/compare_roi_align.py --dtype bfloat16).
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[4]) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+    const float2 a = __bfloat1622float2(h[0]);
+    const float2 b = __bfloat1622float2(h[1]);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[4]) {
+    uint2 t;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+    h[0] = __floats2bfloat162_rn(v[0], v[1]);
+    h[1] = __floats2bfloat162_rn(v[2], v[3]);
+    __stcs(reinterpret_cast<uint2*>(p), t);
+  }
+};
+
 template <>
 struct Vec<__nv_bfloat16, 1> {
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
@@ -648,8 +673,8 @@ int roi_align_pyramid_fwd(void* const* feats, const int* heights,
 // grad_feats: num_levels device pointers to (B, H_l, W_l, C) float32
 // buffers, zeroed by the caller and accumulated into; grad: the forward
 // output's gradient, (B, R, o, o, C) or flat (B, R, o*o*C) x-major, of dtype
-// `dtype`; levels as for the forward. vec: 1, or 4 (f32) / 8 (bf16) when C
-// is a multiple of it and `grad` and every buffer are 16-byte aligned.
+// `dtype`; levels as for the forward. vec: 1, or 4 when C is a multiple of
+// 4 and `grad` and every buffer are 16-byte aligned.
 // Returns a cudaError_t as roi_align_pyramid_fwd does.
 int roi_align_pyramid_bwd(void* const* grad_feats, const int* heights,
                           const int* widths, const float* scales,
@@ -670,8 +695,8 @@ int roi_align_pyramid_bwd(void* const* grad_feats, const int* heights,
   } else if (dtype == 0 && vec == 1) {
     return launch_bwd<float, 1>(pyr, rois, levels, grad, B, C, R, out_size,
                                 sampling_ratio, aligned, flatten, s);
-  } else if (dtype == 1 && vec == 8) {
-    return launch_bwd<__nv_bfloat16, 8>(pyr, rois, levels, grad, B, C, R,
+  } else if (dtype == 1 && vec == 4) {
+    return launch_bwd<__nv_bfloat16, 4>(pyr, rois, levels, grad, B, C, R,
                                         out_size, sampling_ratio, aligned,
                                         flatten, s);
   } else if (dtype == 1 && vec == 1) {

@@ -15,6 +15,10 @@ Here they are made when the trunk is built, from `canvas`, the static
 tap's stage map halved by its stride-2 conv, e.g. 16x32 at C4 and at the
 dilated C5 for a 512x1024 canvas. Training on another canvas raises;
 inference never runs the heads and takes any.
+
+`dtype` is the trunk's compute type. The heads have none, as in the JAX
+module: on a bf16 trunk they run in f32 on the upcast tap, and the GRL's
+gradient flows back into the bf16 trunk.
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ class DAResNet(nn.Module):
                  frozen_stages: int = 1,
                  taps: Tuple[Tap, ...] = VARIANT_TAPS['daf'],
                  trunk_type: str = 'resnet',
-                 canvas: Tuple[int, int] = (512, 1024)):
+                 canvas: Tuple[int, int] = (512, 1024),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if trunk_type != 'resnet':
             raise NotImplementedError(
@@ -87,7 +92,7 @@ class DAResNet(nn.Module):
         self.trunk = ResNet(depth=depth, strides=tuple(strides),
                             dilations=tuple(dilations),
                             out_indices=self.out_indices,
-                            frozen_stages=frozen_stages)
+                            frozen_stages=frozen_stages, dtype=dtype)
         channels = self.trunk.stage_channels()
         self.tap_names = tuple(f'{t.kind}_s{t.stage}_{i}'
                                for i, t in enumerate(self.taps))

@@ -5,6 +5,9 @@ the DA configs use — strides (1, 2, 2, 1), dilations (1, 1, 1, 2), 3x3
 padding equal to the dilation — or the standard one. Deformable convs,
 GroupNorm, weight standardization and plugins are not ported yet.
 
+`dtype` is the compute type of every conv (the frozen BNs apply their
+f32-computed affine in the input's type), as the JAX trunk's `dtype`.
+
 Layout: NCHW tensors (the detector feeds a channels_last view of its NHWC
 batch, so cuDNN runs NHWC kernels). Module names mirror the flax tree —
 `conv1`, `bn1`, `layer1.0.conv2`, `downsample_conv` — so a flax variable
@@ -13,6 +16,7 @@ tree converts by renaming (`layer1/0` → `layer1.0`).
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -20,6 +24,7 @@ from torch import nn
 
 from ...utils.registry import BACKBONES
 from ..layers.norm import FrozenBatchNorm
+from ..layers.precision import Conv2d
 
 
 class Bottleneck(nn.Module):
@@ -29,21 +34,21 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False):
+                 dilation: int = 1, downsample: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        conv = functools.partial(Conv2d, compute_dtype=dtype, bias=False)
+        self.conv1 = conv(inplanes, planes, 1)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation,
-                               bias=False)
+        self.conv2 = conv(planes, planes, 3, stride=stride,
+                          padding=dilation, dilation=dilation)
         self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, out, 1, bias=False)
+        self.conv3 = conv(planes, out, 1)
         self.bn3 = FrozenBatchNorm(out)
         if downsample:
             # flax 1x1 'SAME' pads nothing, stride 2 included
-            self.downsample_conv = nn.Conv2d(inplanes, out, 1, stride=stride,
-                                             bias=False)
+            self.downsample_conv = conv(inplanes, out, 1, stride=stride)
             self.downsample_bn = FrozenBatchNorm(out)
         self.downsample = downsample
 
@@ -63,17 +68,17 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False):
+                 dilation: int = 1, downsample: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation,
-                               bias=False)
+        conv = functools.partial(Conv2d, compute_dtype=dtype, bias=False)
+        self.conv1 = conv(inplanes, planes, 3, stride=stride,
+                          padding=dilation, dilation=dilation)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = conv(planes, planes, 3, padding=1)
         self.bn2 = FrozenBatchNorm(planes)
         if downsample:
-            self.downsample_conv = nn.Conv2d(inplanes, planes, 1,
-                                             stride=stride, bias=False)
+            self.downsample_conv = conv(inplanes, planes, 1, stride=stride)
             self.downsample_bn = FrozenBatchNorm(planes)
         self.downsample = downsample
 
@@ -111,7 +116,8 @@ class ResNet(nn.Module):
                  strides: Sequence[int] = (1, 2, 2, 2),
                  dilations: Sequence[int] = (1, 1, 1, 1),
                  out_indices: Sequence[int] = (0, 1, 2, 3),
-                 frozen_stages: int = -1):
+                 frozen_stages: int = -1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise ValueError(f'invalid depth {depth} for ResNet')
@@ -119,8 +125,8 @@ class ResNet(nn.Module):
         self.depth = depth
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
-        self.conv1 = nn.Conv2d(3, base_channels, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = Conv2d(3, base_channels, 7, stride=2, padding=3,
+                            bias=False, compute_dtype=dtype)
         self.bn1 = FrozenBatchNorm(base_channels)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_ch = base_channels
@@ -135,7 +141,8 @@ class ResNet(nn.Module):
                     in_ch, planes,
                     stride=strides[i] if first else 1,
                     dilation=dilations[i],
-                    downsample=first and (strides[i] != 1 or in_ch != out_ch)))
+                    downsample=first and (strides[i] != 1 or in_ch != out_ch),
+                    dtype=dtype))
                 in_ch = out_ch
             self.add_module(f'layer{i + 1}', nn.Sequential(*blocks))
             channels.append(out_ch)

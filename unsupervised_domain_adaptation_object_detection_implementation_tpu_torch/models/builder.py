@@ -13,6 +13,14 @@ detector that takes it; the JAX builder ignores it there. `canvas`, the static t
 that sizes the MHSA heads, comes from the caller: `apis.init_trainer` and
 `apis.init_detector` pass `train_canvas(cfg)`, the train pipeline's `Pad`
 size.
+
+`dtype` (flat or nested: `--cfg-options model.dtype=bfloat16`) is the
+compute type, float32 by default or bfloat16 (`layers/precision.py`);
+float16 raises. The JAX builder reads it from flat configs only and
+drops it from a nested one; here both take it. Building a bf16 detector
+turns off cuBLAS's reduced-precision reduction for bf16 GEMMs
+(`torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`,
+process-wide), so they accumulate in f32, as XLA's do.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from .detectors import (cyda_faster_rcnn,  # noqa: F401 (register)
                         da_faster_rcnn, faster_rcnn, faster_rcnn_fpn,
                         mask_rcnn, mask_rcnn_c4)
 from .detectors.faster_rcnn import AnchorConfig
+from .layers.precision import compute_dtype
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
 
 # reference detector type name → (registry name, variant kwargs)
@@ -160,14 +169,8 @@ def _init_params(cls) -> Dict[str, inspect.Parameter]:
 def _flat_kwargs(cls, cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Flat module kwargs read as the JAX builder reads them: a dict given
     for a NamedTuple field merges over the field's default, a list for a
-    plain tuple field becomes a tuple. `dtype` names the compute type; only
-    float32 is ported, any other raises."""
+    plain tuple field becomes a tuple."""
     kwargs = dict(cfg)
-    dtype = kwargs.pop('dtype', 'float32')
-    if str(dtype).replace('torch.', '') != 'float32':
-        raise NotImplementedError(f'dtype {dtype!r}: only the float32 '
-                                  'compute path is ported; bf16 comes with '
-                                  'its own slice, ROADMAP.md Queue 1')
     params = _init_params(cls)
     for name, value in kwargs.items():
         default = params[name].default if name in params else None
@@ -199,10 +202,11 @@ def build_detector(cfg: Dict[str, Any],
     """Build a detector module from a config dict (nested or flat) on
     `device` (CUDA unless the caller asks for the CPU), with torch's default
     initialization; `apis.init_detector` sets the weights. `canvas` (H, W)
-    goes to a detector that takes one."""
+    goes to a detector that takes one; `dtype` is its compute type."""
     device = resolve_device(device)
     cfg = dict(cfg)
     det_type = cfg.pop('type')
+    dtype = compute_dtype(cfg.pop('dtype', None))
     if det_type not in _REFERENCE_DETECTOR_MAP:
         raise KeyError(f'detector type {det_type!r} is not ported; have '
                        f'{sorted(_REFERENCE_DETECTOR_MAP)}')
@@ -217,6 +221,9 @@ def build_detector(cfg: Dict[str, Any],
         kwargs = _flat_kwargs(cls, cfg)
     if canvas is not None and 'canvas' in params:
         kwargs['canvas'] = tuple(canvas)
-    kwargs.update(extra)
+    kwargs.update(extra, dtype=dtype)
+    if dtype == torch.bfloat16:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     with device:
         return cls(**kwargs)

@@ -6,6 +6,10 @@ attention, `SRMHead`, `PixelAlignmentHead`, `ImageAlignmentHead` and
 Every head emits logits. The map heads take the trunk's NCHW stage output;
 the pixel and image heads return their logit maps as (B, H, W, 1), the JAX
 layout.
+The heads compute in f32 whatever the trunk's type: their convs and
+linears (`layers/precision.py`) upcast a bf16 tap, as flax promotes bf16
+features and f32 parameters to f32 in a module given no `dtype`; the GRL
+sits before that cast, so its gradient goes back in the tap's type.
 Module names are the flax ones, and where flax gives a conv or dense a bias
 by default, so has the port. Dropout is flax's: keep probability 1 - rate,
 kept values scaled by 1 / (1 - rate).
@@ -21,6 +25,7 @@ from torch import nn
 from ..layers.attention import CBAM, MHSA, NonLocalBlock
 from ..layers.grl import gradient_reverse
 from ..layers.norm import BatchNorm
+from ..layers.precision import Conv2d, Linear
 
 
 class GlobalAlignmentHead(nn.Module):
@@ -41,21 +46,21 @@ class GlobalAlignmentHead(nn.Module):
                              'its attention map')
         c2, c4 = channels // 2, channels // 4
         self.grl_weight = grl_weight
-        self.conv1 = nn.Conv2d(channels, c2, 3, stride=2, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(channels, c2, 3, stride=2, padding=1,
+                            bias=False)
         self.bn1 = BatchNorm(c2)
-        self.conv2 = nn.Conv2d(c2, c2, 3, padding=1)
+        self.conv2 = Conv2d(c2, c2, 3, padding=1)
         self.bn2 = BatchNorm(c2)
-        self.conv3 = nn.Conv2d(c2, c2, 3, padding=1)
+        self.conv3 = Conv2d(c2, c2, 3, padding=1)
         self.bn3 = BatchNorm(c2)
         self.cbam = CBAM(c2) if attention == 'cbam' else None
         self.mhsa = MHSA(c2, map_hw) if attention == 'mhsa' else None
-        self.conv4 = nn.Conv2d(c2, c4, 3, stride=2, padding=1, bias=False)
+        self.conv4 = Conv2d(c2, c4, 3, stride=2, padding=1, bias=False)
         self.bn4 = BatchNorm(c4)
-        self.conv5 = nn.Conv2d(c4, c4, 3, stride=2, padding=1, bias=False)
+        self.conv5 = Conv2d(c4, c4, 3, stride=2, padding=1, bias=False)
         self.bn5 = BatchNorm(c4)
-        self.fc1 = nn.Linear(c4, c4 // 2)
-        self.fc2 = nn.Linear(c4 // 2, 2)
+        self.fc1 = Linear(c4, c4 // 2)
+        self.fc2 = Linear(c4 // 2, 2)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -86,11 +91,11 @@ class SRMHead(nn.Module):
         super().__init__()
         c4 = channels // 4
         self.grl_weight = grl_weight
-        self.conv1 = nn.Conv2d(channels, c4, 1)
+        self.conv1 = Conv2d(channels, c4, 1)
         self.bn1 = BatchNorm(c4)
-        self.conv2 = nn.Conv2d(c4, c4 * 9, 3, padding=3)
+        self.conv2 = Conv2d(c4, c4 * 9, 3, padding=3)
         self.bn2 = BatchNorm(c4 * 9)
-        self.fc = nn.Linear(c4 * 9, 2)
+        self.fc = Linear(c4 * 9, 2)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -110,13 +115,13 @@ class PixelAlignmentHead(nn.Module):
         super().__init__()
         self.use_norm = use_norm
         self.grl_weight = grl_weight
-        self.conv1 = nn.Conv2d(channels, channels, 1, bias=False)
-        self.conv2 = nn.Conv2d(channels, channels, 1, bias=False)
+        self.conv1 = Conv2d(channels, channels, 1, bias=False)
+        self.conv2 = Conv2d(channels, channels, 1, bias=False)
         if use_norm:
             self.bn1 = BatchNorm(channels)
             self.bn2 = BatchNorm(channels)
             self.drop = nn.Dropout(dropout)
-        self.conv_out = nn.Conv2d(channels, 1, 1, bias=False)
+        self.conv_out = Conv2d(channels, 1, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) → (B, H, W, 1) logits."""
@@ -137,8 +142,8 @@ class ImageAlignmentHead(nn.Module):
     def __init__(self, channels: int = 2048, grl_weight: float = -1.0):
         super().__init__()
         self.grl_weight = grl_weight
-        self.conv1 = nn.Conv2d(channels, 512, 1)
-        self.conv2 = nn.Conv2d(512, 1, 1)
+        self.conv1 = Conv2d(channels, 512, 1)
+        self.conv2 = Conv2d(512, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) → (B, H, W, 1) logits."""
@@ -156,9 +161,9 @@ class InstanceAlignmentHead(nn.Module):
         self.grl_weight = grl_weight
         self.nlb = NonLocalBlock(feat_dim) if use_nonlocal else None
         hidden = (512, 512) if use_nonlocal else (feat_dim, feat_dim)
-        self.fc1 = nn.Linear(feat_dim, hidden[0])
-        self.fc2 = nn.Linear(hidden[0], hidden[1])
-        self.fc_out = nn.Linear(hidden[1], 2)
+        self.fc1 = Linear(feat_dim, hidden[0])
+        self.fc2 = Linear(hidden[0], hidden[1])
+        self.fc_out = Linear(hidden[1], 2)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -79,7 +79,7 @@ def grouped_instance_loss(
     """
     b, s, d = bbox_feats.shape
     feats = bbox_feats.reshape(-1, d)
-    probs = torch.softmax(cls_scores.float(), dim=-1).reshape(b * s, -1)
+    probs = torch.softmax(cls_scores, dim=-1).reshape(b * s, -1)
     fg_score = 1.0 - probs[:, -1]
     is_fg = fg_score >= 0.5
     v = valid.reshape(-1)

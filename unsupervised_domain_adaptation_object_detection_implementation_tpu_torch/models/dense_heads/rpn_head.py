@@ -18,20 +18,25 @@ from ...core.bbox.samplers import random_sample
 from ...core.bbox.transforms import bbox2delta, clip_boxes, delta2bbox
 from ...core.post.nms import NEG_INF, nms, topk_stable
 from ...utils.registry import HEADS
+from ..layers.precision import Conv2d
 from ..losses import binary_cross_entropy, smooth_l1_loss
 
 
 @HEADS.register_module()
 class RPNHead(nn.Module):
-    """3x3 conv + ReLU + sibling 1x1 cls/reg convs. `in_channels` is the
-    trunk's output width (flax infers it; torch needs it)."""
+    """3x3 conv + ReLU + sibling 1x1 cls/reg convs, computed at `dtype`.
+    `in_channels` is the trunk's output width (flax infers it; torch needs
+    it)."""
 
     def __init__(self, in_channels: int = 2048, feat_channels: int = 2048,
-                 num_anchors: int = 15):
+                 num_anchors: int = 15, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
-        self.rpn_cls = nn.Conv2d(feat_channels, num_anchors, 1)
-        self.rpn_reg = nn.Conv2d(feat_channels, num_anchors * 4, 1)
+        self.rpn_conv = Conv2d(in_channels, feat_channels, 3, padding=1,
+                               compute_dtype=dtype)
+        self.rpn_cls = Conv2d(feat_channels, num_anchors, 1,
+                              compute_dtype=dtype)
+        self.rpn_reg = Conv2d(feat_channels, num_anchors * 4, 1,
+                              compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, C, H, W) → cls (B, H, W, A), reg (B, H, W, A*4)."""

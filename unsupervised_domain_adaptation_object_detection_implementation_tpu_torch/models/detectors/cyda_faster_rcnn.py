@@ -16,6 +16,9 @@ translated image and the translation trains on the GAN and cycle terms
 alone. With `pretraining=True` (CyCADA) the loss stops after the GAN
 terms and the detector gets no gradient.
 
+The CycleGAN has no compute type and runs in f32; on a bf16 detector
+(`dtype`) only the detector's input is cast, as in the JAX module.
+
 Images enter the generators divided by 2.7 (about the largest |value| of
 an ImageNet-normalised pixel) and leave multiplied by it. `predict` is
 plain Faster R-CNN on untranslated images; `translate` maps a batch from
@@ -64,7 +67,7 @@ class CyDAFasterRCNN(FasterRCNN):
 
     def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
         return DAResNet(depth=depth, frozen_stages=frozen_stages,
-                        taps=(Tap(3, 'global', 'cbam'),))
+                        taps=(Tap(3, 'global', 'cbam'),), dtype=self.dtype)
 
     def _trunk(self) -> ResNet:
         return self.backbone.trunk
@@ -81,7 +84,8 @@ class CyDAFasterRCNN(FasterRCNN):
         return torch.stack([fake_t, img[1::2]], dim=1).reshape(img.shape)
 
     def extract_feat(self, image: torch.Tensor) -> torch.Tensor:
-        (feat,), _ = self.backbone(image.permute(0, 3, 1, 2), with_da=False)
+        (feat,), _ = self.backbone(image.to(self.dtype).permute(0, 3, 1, 2),
+                                   with_da=False)
         return feat
 
     def loss(self, batch: Dict[str, torch.Tensor],
@@ -116,7 +120,8 @@ class CyDAFasterRCNN(FasterRCNN):
 
         det_img = self._det_rows(fake_t, img)
         with record_function('step/trunk_and_grl_heads'):
-            (feat,), da_out = self.backbone(det_img, with_da=True)
+            (feat,), da_out = self.backbone(det_img.to(self.dtype),
+                                            with_da=True)
         det, _, _, _ = self._det_losses(
             feat, batch, (batch['domain'] == 0).float(), generator,
             sampler_priorities)

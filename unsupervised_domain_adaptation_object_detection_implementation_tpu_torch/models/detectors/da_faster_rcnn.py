@@ -16,6 +16,11 @@ ones, letter for letter.
 The MHSA taps of the 'tri' variant are built for `canvas`, the static
 training canvas (see `backbones/da_resnet.py`).
 
+On a bf16 detector (`dtype`) the alignment heads run in f32 on the
+upcast taps and shared-FC features, as the JAX package's heads, which
+get no `dtype`, do; the fg/bg split's softmax runs in the box logits'
+type, as there.
+
 At test time the DA detectors are plain Faster R-CNN: the trunk runs with
 `with_da=False` and the alignment heads are never run, as in the JAX
 module's `predict`.
@@ -77,13 +82,15 @@ class DAFasterRCNN(FasterRCNN):
 
     def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
         return DAResNet(depth=depth, frozen_stages=frozen_stages,
-                        taps=VARIANT_TAPS[self.variant], canvas=self.canvas)
+                        taps=VARIANT_TAPS[self.variant], canvas=self.canvas,
+                        dtype=self.dtype)
 
     def _trunk(self) -> ResNet:
         return self.backbone.trunk
 
     def extract_feat(self, image: torch.Tensor) -> torch.Tensor:
-        (feat,), _ = self.backbone(image.permute(0, 3, 1, 2), with_da=False)
+        (feat,), _ = self.backbone(image.to(self.dtype).permute(0, 3, 1, 2),
+                                   with_da=False)
         return feat
 
     def loss(self, batch: Dict[str, torch.Tensor],
@@ -94,7 +101,8 @@ class DAFasterRCNN(FasterRCNN):
         source_mask = (domain == 0).float()
         with record_function('step/trunk_and_grl_heads'):
             (feat,), da_out = self.backbone(
-                batch['image'].float().permute(0, 3, 1, 2), with_da=True)
+                batch['image'].to(self.dtype).permute(0, 3, 1, 2),
+                with_da=True)
         losses, sampled, cls, shared_feat = self._det_losses(
             feat, batch, source_mask, generator, sampler_priorities)
 
@@ -154,7 +162,7 @@ class DAFasterRCNN(FasterRCNN):
         0.5; the fore and back heads see every RoI, and each CE is averaged
         over its own valid RoIs."""
         b, s, d = shared_feat.shape
-        probs = torch.softmax(cls.float(), dim=-1)
+        probs = torch.softmax(cls, dim=-1)
         is_fg = (1.0 - probs[..., -1]) >= 0.5
         dom_t = domain[:, None].expand(b, s).reshape(-1)
         flat = shared_feat.reshape(-1, d)

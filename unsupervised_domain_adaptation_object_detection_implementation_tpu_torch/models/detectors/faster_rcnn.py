@@ -7,6 +7,10 @@ Batch contract (from `data.pipelines.PackDetInputs` + `data.collate`):
     · domain (B,)
 Inference outputs: dets (B, max, 5), labels (B, max), valid (B, max).
 
+`dtype` is the compute type of the trunk, the RPN and the box head (the
+image is cast to it before the trunk); losses, proposals and the box
+decode run in f32, as in the JAX package.
+
 The samplers draw their priorities from the `generator` the caller passes,
 or take them from `sampler_priorities` = dict(rpn=(B, N anchors),
 rcnn=(B, G + P candidates)), as the parity tests do.
@@ -74,8 +78,10 @@ class FasterRCNN(nn.Module):
                      nms_pre=4096, max_per_img=1000),
                  roi_train_cfg: RoITrainConfig = RoITrainConfig(),
                  roi_test_cfg: RoITestConfig = RoITestConfig(),
-                 featmap_stride: int = 16):
+                 featmap_stride: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_classes = num_classes
         self.anchor_cfg = anchor_cfg
         self.rpn_train_cfg = rpn_train_cfg
@@ -87,22 +93,23 @@ class FasterRCNN(nn.Module):
         self.backbone = self._build_backbone(backbone_depth, frozen_stages)
         width = self._trunk().stage_channels()[-1]
         self.rpn_head = RPNHead(in_channels=width, feat_channels=2048,
-                                num_anchors=anchor_cfg.num_anchors)
+                                num_anchors=anchor_cfg.num_anchors,
+                                dtype=dtype)
         self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
-                                           in_channels=width)
+                                           in_channels=width, dtype=dtype)
 
     def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
         return ResNet(depth=depth, strides=(1, 2, 2, 1),
                       dilations=(1, 1, 1, 2), out_indices=(3,),
-                      frozen_stages=frozen_stages)
+                      frozen_stages=frozen_stages, dtype=self.dtype)
 
     def _trunk(self) -> ResNet:
         return self.backbone
 
     def extract_feat(self, image: torch.Tensor) -> torch.Tensor:
-        """image (B, H, W, 3) → stride-16 features (B, C, H/16, W/16); the
-        NHWC batch enters as a channels_last NCHW view."""
-        (feat,) = self.backbone(image.permute(0, 3, 1, 2))
+        """image (B, H, W, 3) → stride-16 features (B, C, H/16, W/16) at
+        `dtype`; the NHWC batch enters as a channels_last NCHW view."""
+        (feat,) = self.backbone(image.to(self.dtype).permute(0, 3, 1, 2))
         return feat
 
     # The serving surface that FasterRCNNFPN shares: RPN outputs and

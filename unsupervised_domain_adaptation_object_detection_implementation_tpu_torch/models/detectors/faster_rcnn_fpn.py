@@ -9,7 +9,8 @@ location-major and anchor-minor, the levels in order — so the single-level
 RPN loss and proposals apply unchanged, as in the JAX package (a global
 top-`nms_pre` over all levels, not mmdet's per-level top-k).
 
-The batch contract and the samplers are those of `faster_rcnn.py`.
+The batch contract, the samplers and `dtype` (the trunk, neck, RPN and
+box head's compute type) are those of `faster_rcnn.py`.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ class FPNRPNHead(RPNHead):
     (`rpn_conv`, `rpn_cls`, `rpn_reg`, as in the JAX tree)."""
 
     def __init__(self, in_channels: int = 256, feat_channels: int = 256,
-                 num_anchors: int = 3):
-        super().__init__(in_channels, feat_channels, num_anchors)
+                 num_anchors: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, feat_channels, num_anchors, dtype)
 
     def forward(self, feats: Sequence[torch.Tensor]
                 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
@@ -71,8 +72,10 @@ class FasterRCNNFPN(nn.Module):
                  roi_train_cfg: RoITrainConfig = RoITrainConfig(
                      use_sigmoid_cls=False),
                  roi_test_cfg: RoITestConfig = RoITestConfig(),
-                 neck_channels: int = 256):
+                 neck_channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if roi_layer != 'align':
             raise NotImplementedError(f'roi_layer {roi_layer!r}: only '
                                       "RoIAlign ('align') is ported")
@@ -94,18 +97,20 @@ class FasterRCNNFPN(nn.Module):
         self.backbone = build_trunk(
             backbone_cfg, depth=backbone_depth, strides=(1, 2, 2, 2),
             dilations=(1, 1, 1, 1), out_indices=(0, 1, 2, 3),
-            frozen_stages=frozen_stages)
+            frozen_stages=frozen_stages, dtype=dtype)
         self.neck = make_fpn_neck(
             neck_type, in_channels=self.backbone.stage_channels(),
-            out_channels=neck_channels, num_outs=5)
-        self.rpn_head = FPNRPNHead(in_channels=neck_channels)
+            out_channels=neck_channels, num_outs=5, dtype=dtype)
+        self.rpn_head = FPNRPNHead(in_channels=neck_channels, dtype=dtype)
         self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
-                                           in_channels=neck_channels)
+                                           in_channels=neck_channels,
+                                           dtype=dtype)
 
     def extract_feat(self, image: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """image (B, H, W, 3) → the pyramid's (B, C, H_l, W_l) levels P2–P6;
-        the NHWC batch enters as a channels_last NCHW view."""
-        return self.neck(self.backbone(image.permute(0, 3, 1, 2)))
+        """image (B, H, W, 3) → the pyramid's (B, C, H_l, W_l) levels P2–P6
+        at `dtype`; the NHWC batch enters as a channels_last NCHW view."""
+        return self.neck(self.backbone(
+            image.to(self.dtype).permute(0, 3, 1, 2)))
 
     # The serving surface of `FasterRCNN`, over the levels.
     def rpn_outputs(self, feats: Sequence[torch.Tensor]):

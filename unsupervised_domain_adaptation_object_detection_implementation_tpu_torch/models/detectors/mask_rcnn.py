@@ -55,7 +55,7 @@ class MaskRCNN(FasterRCNNFPN):
         self.mask_head = FCNMaskHead(
             num_classes=num_classes,
             in_channels=kwargs.get('neck_channels', 256),
-            normed_predictor=normed_mask)
+            normed_predictor=normed_mask, dtype=self.dtype)
 
     def loss(self, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,

@@ -23,6 +23,7 @@ from ..backbones.build import build_trunk
 from ..backbones.resnet import ARCH_SETTINGS
 from ..dense_heads.rpn_head import (ProposalConfig, RPNHead, RPNTrainConfig,
                                     rpn_loss, rpn_proposals)
+from ..layers.precision import Linear
 from ..roi_heads.mask_head import (FCNMaskHead, mask_loss,
                                    mask_targets_from_box_frame)
 from ..roi_heads.standard_roi_head import (RoITestConfig, RoITrainConfig,
@@ -38,14 +39,15 @@ class ResLayerSharedHead(nn.Module):
     `res5_block{i}` as in the JAX tree."""
 
     def __init__(self, depth: int = 50, in_channels: int = 1024,
-                 stride: int = 2):
+                 stride: int = 2, dtype: torch.dtype = torch.float32):
         super().__init__()
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
         self.num_blocks = stage_blocks[3]
         ch = in_channels
         for i in range(self.num_blocks):
             self.add_module(f'res5_block{i}', block_cls(
-                ch, 512, stride=stride if i == 0 else 1, downsample=i == 0))
+                ch, 512, stride=stride if i == 0 else 1, downsample=i == 0,
+                dtype=dtype))
             ch = 512 * block_cls.expansion
         self.out_channels = ch
 
@@ -61,12 +63,15 @@ class ResLayerSharedHead(nn.Module):
 
 class C4BBoxHead(nn.Module):
     """Global average pool of the res5 output, then sibling `fc_cls` (K+1)
-    and `fc_reg` (4K); returns the pooled feature too."""
+    and `fc_reg` (4K), at `dtype`; returns the pooled feature too."""
 
-    def __init__(self, num_classes: int = 80, in_channels: int = 2048):
+    def __init__(self, num_classes: int = 80, in_channels: int = 2048,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc_cls = nn.Linear(in_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(in_channels, num_classes * 4)
+        self.fc_cls = Linear(in_channels, num_classes + 1,
+                             compute_dtype=dtype)
+        self.fc_reg = Linear(in_channels, num_classes * 4,
+                             compute_dtype=dtype)
 
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -78,7 +83,9 @@ class C4BBoxHead(nn.Module):
 class MaskRCNNC4(nn.Module):
     """Trunk to C4 → RPN → proposals → 14x14 RoIAlign → res5 → box head
     (and, `with_mask`, the mask head on the same res5 output) → multiclass
-    NMS. Only the default ResNet trunk is ported; a `backbone_cfg` raises."""
+    NMS. `dtype` is the compute type of the trunk, the RPN, res5 and the
+    box and mask heads. Only the default ResNet trunk is ported; a
+    `backbone_cfg` raises."""
 
     def __init__(self, num_classes: int = 80, backbone_depth: int = 50,
                  backbone_cfg: Any = None, frozen_stages: int = 1,
@@ -91,8 +98,10 @@ class MaskRCNNC4(nn.Module):
                      use_sigmoid_cls=False),
                  roi_test_cfg: RoITestConfig = RoITestConfig(),
                  featmap_stride: int = 16, roi_size: int = 14,
-                 mask_size: int = 14, with_mask: bool = True):
+                 mask_size: int = 14, with_mask: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if roi_train_cfg.sampler_type != 'random':
             raise NotImplementedError(
                 f'sampler {roi_train_cfg.sampler_type!r}: only the random '
@@ -111,21 +120,24 @@ class MaskRCNNC4(nn.Module):
         self.backbone = build_trunk(
             backbone_cfg, depth=backbone_depth, num_stages=3,
             strides=(1, 2, 2), dilations=(1, 1, 1), out_indices=(2,),
-            frozen_stages=frozen_stages)
+            frozen_stages=frozen_stages, dtype=dtype)
         c4 = self.backbone.stage_channels()[-1]
         self.rpn_head = RPNHead(in_channels=c4, feat_channels=1024,
-                                num_anchors=anchor_cfg.num_anchors)
-        self.shared_head = ResLayerSharedHead(backbone_depth, c4)
+                                num_anchors=anchor_cfg.num_anchors,
+                                dtype=dtype)
+        self.shared_head = ResLayerSharedHead(backbone_depth, c4,
+                                              dtype=dtype)
         width = self.shared_head.out_channels
-        self.bbox_head = C4BBoxHead(num_classes, width)
+        self.bbox_head = C4BBoxHead(num_classes, width, dtype)
         if with_mask:
             self.mask_head = FCNMaskHead(num_classes=num_classes,
-                                         num_convs=0, in_channels=width)
+                                         num_convs=0, in_channels=width,
+                                         dtype=dtype)
 
     def extract_feat(self, image: torch.Tensor) -> torch.Tensor:
-        """image (B, H, W, 3) → C4 (B, C, H/16, W/16); the NHWC batch
-        enters as a channels_last NCHW view."""
-        (feat,) = self.backbone(image.permute(0, 3, 1, 2))
+        """image (B, H, W, 3) → C4 (B, C, H/16, W/16) at `dtype`; the NHWC
+        batch enters as a channels_last NCHW view."""
+        (feat,) = self.backbone(image.to(self.dtype).permute(0, 3, 1, 2))
         return feat
 
     # The serving surface of `FasterRCNN`; the box head applies res5 first.

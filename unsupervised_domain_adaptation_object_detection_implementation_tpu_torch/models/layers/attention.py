@@ -1,5 +1,8 @@
 """Attention blocks of the DA heads (counterpart of the JAX package's
-`models/layers/attention.py`: `CBAM`, `NonLocalBlock` and `MHSA`)."""
+`models/layers/attention.py`: `CBAM`, `NonLocalBlock` and `MHSA`).
+
+They have no compute type of their own, as in the JAX package: their
+convs and linears (`precision.py`) run in f32 and upcast a bf16 input."""
 
 from __future__ import annotations
 
@@ -9,6 +12,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from .precision import Conv2d, Linear
+
 
 class CBAM(nn.Module):
     """Channel then spatial attention on an NCHW map. The spatial conv pads
@@ -17,12 +22,12 @@ class CBAM(nn.Module):
     def __init__(self, channels: int, reduction: int = 16,
                  spatial_kernel: int = 7):
         super().__init__()
-        self.mlp_reduce = nn.Conv2d(channels, channels // reduction, 1,
-                                    bias=False)
-        self.mlp_expand = nn.Conv2d(channels // reduction, channels, 1,
-                                    bias=False)
-        self.spatial = nn.Conv2d(2, 1, spatial_kernel,
-                                 padding=spatial_kernel // 2, bias=False)
+        self.mlp_reduce = Conv2d(channels, channels // reduction, 1,
+                                 bias=False)
+        self.mlp_expand = Conv2d(channels // reduction, channels, 1,
+                                 bias=False)
+        self.spatial = Conv2d(2, 1, spatial_kernel,
+                              padding=spatial_kernel // 2, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         max_pool = x.amax(dim=(2, 3), keepdim=True)
@@ -43,10 +48,10 @@ class NonLocalBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         inter = channels // 2
-        self.phi = nn.Linear(channels, inter, bias=False)
-        self.theta = nn.Linear(channels, inter, bias=False)
-        self.g = nn.Linear(channels, inter, bias=False)
-        self.out = nn.Linear(inter, channels, bias=False)
+        self.phi = Linear(channels, inter, bias=False)
+        self.theta = Linear(channels, inter, bias=False)
+        self.g = Linear(channels, inter, bias=False)
+        self.out = Linear(inter, channels, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attn = torch.softmax(self.theta(x) @ self.phi(x).T, dim=-1)
@@ -69,9 +74,9 @@ class MHSA(nn.Module):
         self.num_heads = num_heads
         self.map_hw = tuple(map_hw)
         h, w = self.map_hw
-        self.q = nn.Conv2d(channels, channels, 1)
-        self.k = nn.Conv2d(channels, channels, 1)
-        self.v = nn.Conv2d(channels, channels, 1)
+        self.q = Conv2d(channels, channels, 1)
+        self.k = Conv2d(channels, channels, 1)
+        self.v = Conv2d(channels, channels, 1)
         self.rel_h = nn.Parameter(torch.zeros(h, 1, channels))
         self.rel_w = nn.Parameter(torch.zeros(1, w, channels))
 

@@ -12,6 +12,7 @@ renaming.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -19,19 +20,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...utils.registry import NECKS
+from ..layers.precision import Conv2d
 
 
 @NECKS.register_module()
 class FPN(nn.Module):
     """`in_channels` are the trunk stages' widths; `num_outs` levels come
     out, the ones beyond the inputs made by `add_extra_convs` (False |
-    'on_input' | 'on_output')."""
+    'on_input' | 'on_output'). Every conv computes at `dtype`."""
 
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
                  out_channels: int = 256, num_outs: int = 5,
                  start_level: int = 0,
                  add_extra_convs: Union[bool, str] = False,
-                 relu_before_extra_convs: bool = False):
+                 relu_before_extra_convs: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if add_extra_convs not in (False, 'on_input', 'on_output'):
             raise ValueError(f'add_extra_convs {add_extra_convs!r}: one of '
@@ -42,18 +45,18 @@ class FPN(nn.Module):
         self.add_extra_convs = add_extra_convs
         self.relu_before_extra_convs = relu_before_extra_convs
         used = self.in_channels[start_level:]
+        conv = functools.partial(Conv2d, compute_dtype=dtype)
         for i, c in enumerate(used):
-            self.add_module(f'lateral_{i}', nn.Conv2d(c, out_channels, 1))
+            self.add_module(f'lateral_{i}', conv(c, out_channels, 1))
             self.add_module(f'fpn_conv_{i}',
-                            nn.Conv2d(out_channels, out_channels, 3,
-                                      padding=1))
+                            conv(out_channels, out_channels, 3, padding=1))
         if add_extra_convs:
             for i in range(max(num_outs - len(used), 0)):
                 c = used[-1] if i == 0 and add_extra_convs == 'on_input' \
                     else out_channels
                 self.add_module(f'extra_conv_{i}',
-                                nn.Conv2d(c, out_channels, 3, stride=2,
-                                          padding=1))
+                                conv(c, out_channels, 3, stride=2,
+                                     padding=1))
 
     def forward(self, inputs: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, ...]:

@@ -3,28 +3,32 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 from torch import nn
 
+from ..layers.precision import Linear
+
 
 class Shared2FCBBoxHead(nn.Module):
     """fc1 → ReLU → fc2 → ReLU → (cls K+1, reg 4 or 4K); returns the shared
-    1024-d feature too. `in_channels` is the RoI feature width (the trunk's
-    output channels)."""
+    1024-d feature too, all at `dtype` (the GEMMs accumulate in f32).
+    `in_channels` is the RoI feature width (the trunk's output channels)."""
 
     def __init__(self, num_classes: int = 8, in_channels: int = 2048,
                  roi_feat_size: int = 7, fc_out_channels: int = 1024,
-                 reg_class_agnostic: bool = False):
+                 reg_class_agnostic: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
-        self.shared_fc1 = nn.Linear(in_channels * roi_feat_size**2,
-                                    fc_out_channels)
-        self.shared_fc2 = nn.Linear(fc_out_channels, fc_out_channels)
-        self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
-        self.fc_reg = nn.Linear(fc_out_channels,
-                                4 if reg_class_agnostic else 4 * num_classes)
+        fc = functools.partial(Linear, compute_dtype=dtype)
+        self.shared_fc1 = fc(in_channels * roi_feat_size**2, fc_out_channels)
+        self.shared_fc2 = fc(fc_out_channels, fc_out_channels)
+        self.fc_cls = fc(fc_out_channels, num_classes + 1)
+        self.fc_reg = fc(fc_out_channels,
+                         4 if reg_class_agnostic else 4 * num_classes)
 
     def forward(self, roi_feats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

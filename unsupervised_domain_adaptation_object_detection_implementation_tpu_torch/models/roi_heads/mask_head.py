@@ -19,6 +19,7 @@ from torch import nn
 
 from ...ops.roi_align import batched_roi_align
 from ...utils.registry import HEADS
+from ..layers.precision import Conv2d
 from ..losses import binary_cross_entropy
 
 
@@ -30,29 +31,35 @@ class FCNMaskHead(nn.Module):
     `normed_predictor` (mmdet's `NormedConv2d` predictor) replaces the 1x1
     conv by `conv_logits_kernel` (C, K), L2-normed over its input channels,
     applied to the features L2-normed over channels and scaled by
-    `normed_tempearture` (mmdet's spelling), as in the JAX head."""
+    `normed_tempearture` (mmdet's spelling), as in the JAX head.
+
+    Every conv computes at `dtype`; the normed predictor takes the
+    features' norm in f32 and applies it, and the normed kernel, in
+    `dtype`, as the JAX head does."""
 
     def __init__(self, num_classes: int = 80, num_convs: int = 4,
                  in_channels: int = 256, feat_channels: int = 256,
                  normed_predictor: bool = False,
-                 normed_tempearture: float = 20.0):
+                 normed_tempearture: float = 20.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.num_convs = num_convs
         self.normed_predictor = normed_predictor
         self.normed_tempearture = normed_tempearture
         for i in range(num_convs):
-            self.add_module(f'conv{i}', nn.Conv2d(
+            self.add_module(f'conv{i}', Conv2d(
                 in_channels if i == 0 else feat_channels, feat_channels, 3,
-                padding=1))
-        self.upsample_conv = nn.Conv2d(
+                padding=1, compute_dtype=dtype))
+        self.upsample_conv = Conv2d(
             feat_channels if num_convs else in_channels, feat_channels, 3,
-            padding=1)
+            padding=1, compute_dtype=dtype)
         if normed_predictor:
             self.conv_logits_kernel = nn.Parameter(
                 torch.empty(feat_channels, num_classes))
         else:
-            self.conv_logits = nn.Conv2d(feat_channels, num_classes, 1)
+            self.conv_logits = Conv2d(feat_channels, num_classes, 1,
+                                      compute_dtype=dtype)
 
     def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
         """(..., R, s, s, C) NHWC RoI features → (..., R, 2s, 2s, K) logits.
@@ -63,19 +70,34 @@ class FCNMaskHead(nn.Module):
         x = roi_feats.reshape(-1, s, s, c).permute(0, 3, 1, 2)
         for i in range(self.num_convs):
             x = torch.relu(getattr(self, f'conv{i}')(x))
-        # jax.image.resize 'bilinear' at 2x: half-pixel centres, the edge
-        # taps renormalised, which equals clamping the source coordinate
-        x = F.interpolate(x, scale_factor=2, mode='bilinear',
-                          align_corners=False)
+        x = _upsample_2x(x)
         x = torch.relu(self.upsample_conv(x))
         if self.normed_predictor:
             w = self.conv_logits_kernel
             w = w / (torch.linalg.vector_norm(w, dim=0, keepdim=True) + 1e-6)
-            xn = x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-6)
-            x = self.normed_tempearture * F.conv2d(xn, w.t()[:, :, None, None])
+            xn = x / (torch.linalg.vector_norm(x.float(), dim=1, keepdim=True)
+                      + 1e-6).to(x.dtype)
+            x = self.normed_tempearture * F.conv2d(
+                xn, w.t()[:, :, None, None].to(x.dtype))
         else:
             x = self.conv_logits(x)
         return x.permute(0, 2, 3, 1).reshape(*lead, 2 * s, 2 * s, -1)
+
+
+def _upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """`jax.image.resize(..., 'bilinear')` at 2x of an NCHW map: half-pixel
+    centres, the edge taps renormalised, which equals clamping the source
+    coordinate. In f32 one pass; in bf16 the rows first, then the columns,
+    each rounded to bf16, as the JAX resize contracts its two weight
+    matrices one after the other."""
+    h, w = x.shape[-2:]
+    if x.dtype == torch.float32:
+        return F.interpolate(x, scale_factor=2, mode='bilinear',
+                             align_corners=False)
+    x = F.interpolate(x, size=(2 * h, w), mode='bilinear',
+                      align_corners=False)
+    return F.interpolate(x, size=(2 * h, 2 * w), mode='bilinear',
+                         align_corners=False)
 
 
 def box_frame_crops(gt_masks: torch.Tensor, gt_boxes: torch.Tensor,

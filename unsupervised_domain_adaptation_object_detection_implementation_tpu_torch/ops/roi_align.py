@@ -177,7 +177,10 @@ def batched_roi_align_fpn_plain(feats: Sequence[torch.Tensor],
 
 _MAX_LEVELS = 4       # kMaxLevels of csrc/roi_align_pyramid.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# channels a thread: a 16-byte vector in the forward; in the backward 4 of
+# either type, one float4 red into the f32 buffer each
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
+_BWD_VEC = 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,7 +323,7 @@ def roi_align_pyramid_bwd_cuda(grad: torch.Tensor, rois: torch.Tensor,
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad.device)
     grads = [v.view(s) for v, s in zip(flat.split(sizes), shapes)]
     if b * n:
-        vec = _VEC[grad.dtype]
+        vec = _BWD_VEC
         if c % vec or any(t.data_ptr() % 16 for t in (grad, *grads)):
             vec = 1
         _launch(_pyramid_lib().roi_align_pyramid_bwd,

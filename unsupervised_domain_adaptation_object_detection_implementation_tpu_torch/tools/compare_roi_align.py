@@ -2,7 +2,8 @@
 the same inputs, in turns.
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.compare_roi_align \
-        --other build/parent [--out build/profile/compare_roi_align.json]
+        --other build/parent [--dtype bfloat16] \
+        [--out build/profile/compare_roi_align.json]
 
 Run from the root of a checkout; `--other` is the root of another checkout
 (for example the parent commit, unpacked with `git archive` into a
@@ -13,7 +14,8 @@ points that every version of the port has, `ops.roi_align.batched_roi_align`
 and `batched_roi_align_fpn`: the forward under `no_grad`, the backward as
 `torch.autograd.grad` of a kept forward graph (the zeroing of the gradient
 buffer included, as a train step runs it). Cases, at the shapes of
-`chip_smoke.py` phase 3, f32:
+`chip_smoke.py` phase 3, in f32 or (`--dtype bfloat16`) with the features
+and the output gradient in bf16:
 
 - `dc5_fwd`: feats (2, 38, 64, 2048), 2 x 1000 RoIs, flat output;
 - `dc5_bwd`: feats (2, 32, 64, 2048), 2 x 512 RoIs, flat g;
@@ -28,7 +30,9 @@ after a warm-up: the RoIAlign kernels' own device time from a
 small kernels around them, such as the FPN path's level computation, do not
 count), and CUDA events around the calls (`call_ms`, which the host can
 hold back where a call is short). It checks that the two agree within 1e-4
-of the output's scale (`TOL`), prints the card's name and power limit and
+of the output's scale in f32 (`TOL`), within `chip_smoke.TOL_BF16` in bf16
+(the backward's f32 sums, added in another order, round to bf16 an ulp
+apart), prints the card's name and power limit and
 one line a case, and writes the numbers as JSON to `--out`.
 """
 
@@ -81,14 +85,18 @@ def step_rois(smoke):
     gen = torch.Generator(device='cuda').manual_seed(0)
     for _ in range(6):
         state, _ = trainer.step(state, batch, gen)
-    feats, rois, _ = smoke.sample_step_rois(trainer.model, batch, 3)
-    return feats, rois
+    feats, sampled, _ = smoke.sample_step_rois(trainer.model, batch, 3)
+    return feats, sampled.rois
 
 
-def cases(smoke):
+def cases(smoke, dtype=torch.float32):
     """name → (make(ra): a function of no arguments that launches the kernel
-    of `ra` once and returns its result)."""
+    of `ra` once and returns its result); features and output gradients in
+    `dtype`."""
     gen = torch.Generator(device='cuda').manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda').to(dtype)
 
     def fwd(feats, rois):
         def make(ra):
@@ -124,25 +132,23 @@ def cases(smoke):
         return make
 
     out = {}
-    feats = torch.randn(2, 38, 64, 2048, generator=gen, device='cuda')
+    feats = randn(2, 38, 64, 2048)
     out['dc5_fwd'] = fwd(feats, smoke.make_rois(gen, 2, 1000, 38, 64))
-    feats = torch.randn(2, 32, 64, 2048, generator=gen, device='cuda')
+    feats = randn(2, 32, 64, 2048)
     rois = smoke.make_rois(gen, 2, 512, 32, 64)
-    grad = torch.randn(2, 512, 49 * 2048, generator=gen, device='cuda')
+    grad = randn(2, 512, 49 * 2048)
     out['dc5_bwd'] = bwd(feats, rois, grad)
     feats, rois = step_rois(smoke)
-    grad = torch.randn(2, rois.shape[1], 49 * feats.shape[-1], generator=gen,
-                       device='cuda')
+    feats = feats.to(dtype)
+    grad = randn(2, rois.shape[1], 49 * feats.shape[-1])
     out['dc5_bwd_step'] = bwd(feats, rois, grad)
     for name, (ih, n) in (('fpn_fwd', (608, 1000)), ('fpn_bwd', (512, 512))):
-        feats = [torch.randn(2, ih // s, 1024 // s, 256, generator=gen,
-                             device='cuda') for s in smoke.FPN_STRIDES]
+        feats = [randn(2, ih // s, 1024 // s, 256) for s in smoke.FPN_STRIDES]
         rois = smoke.make_fpn_rois(gen, 2, n, ih, 1024)
         if name == 'fpn_fwd':
             out[name] = fpn_fwd(feats, rois)
         else:
-            grad = torch.randn(2, n, 49 * 256, generator=gen, device='cuda')
-            out[name] = fpn_bwd(feats, rois, grad)
+            out[name] = fpn_bwd(feats, rois, randn(2, n, 49 * 256))
     return out
 
 
@@ -168,8 +174,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--other', required=True,
                     help='root of the other checkout')
+    ap.add_argument('--dtype', default='float32',
+                    choices=['float32', 'bfloat16'])
     ap.add_argument('--out', default='build/profile/compare_roi_align.json')
     args = ap.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         raise SystemExit('compare_roi_align needs a CUDA card')
     sys.path.insert(0, os.getcwd())
@@ -183,14 +192,15 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     sides = {'this': roi_align, 'other': load_roi_align(args.other,
                                                         'other_port')}
-    result = dict(card=card, other=args.other, cases={})
-    for name, make in cases(smoke).items():
+    tol = TOL if dtype == torch.float32 else smoke.TOL_BF16
+    result = dict(card=card, other=args.other, dtype=args.dtype, cases={})
+    for name, make in cases(smoke, dtype).items():
         runs = {k: make(ra) for k, ra in sides.items()}
         got, ref = runs['this'](), runs['other']()
         torch.cuda.synchronize()
-        scale = max(1.0, float(ref.abs().max()))
-        err = float((got - ref).abs().max())
-        if not err <= TOL * scale:
+        scale = max(1.0, float(ref.float().abs().max()))
+        err = float((got.float() - ref.float()).abs().max())
+        if not err <= tol * scale:
             raise RuntimeError(f'{name}: the checkouts disagree, {err} at '
                                f'scale {scale}')
         kernel = {k: [] for k in sides}
@@ -200,7 +210,7 @@ def main(argv=None):
             call[k].append(smoke.time_ms(runs[k], 20))
         result['cases'][name] = dict(kernel_ms=kernel, call_ms=call,
                                      max_abs_diff=err, scale=scale)
-        print(f'{name}: kernel ms this {kernel["this"]} other '
+        print(f'{name} {args.dtype}: kernel ms this {kernel["this"]} other '
               f'{kernel["other"]}; call ms this {call["this"]} other '
               f'{call["other"]}; apart by {err:.3e} at scale {scale:.3f}',
               flush=True)

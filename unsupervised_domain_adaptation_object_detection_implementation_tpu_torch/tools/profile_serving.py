@@ -2,10 +2,12 @@
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_serving \
         [--config configs/da/faster_rcnn_r50_daf_c2f.py] [--requests 5] \
+        [--cfg-options model.dtype=bfloat16] \
         [--out chiprun_out/profile_serving.json]
 
-Builds the detector with seeded random weights, answers requests of two
-seeded 1024x2048 images, and reports:
+Builds the detector with seeded random weights (`--cfg-options` merges
+dotted overrides into the config, as the command lines do), answers
+requests of two seeded 1024x2048 images, and reports:
 
 - per-stage times on the host clock, each stage ending in a synchronize:
   preprocess (pipeline on the card), trunk (with the FPN neck for the FPN
@@ -18,7 +20,8 @@ seeded 1024x2048 images, and reports:
   split into pipeline, `predict`, and copy-back with per-class packing;
 - a `torch.profiler` trace of whole requests: device busy time (sum of
   device time of all kernels and copies), the idle share of the wall time,
-  and the kernels that take the most device time.
+  and the kernels that take the most device time; the peak memory of the
+  requests.
 
 Stage times add a synchronize per stage, so their sum exceeds the plain
 request time by the overlap the syncs remove. Needs a card; raises without.
@@ -38,6 +41,7 @@ import torch
 from ..apis import inference_detector, init_detector, prepare_batch
 from ..core.bbox.transforms import bbox2result
 from ..models.dense_heads.rpn_head import rpn_proposals
+from .train import load_config
 from ..models.roi_heads.standard_roi_head import roi_head_predict
 
 
@@ -112,13 +116,16 @@ def main(argv=None):
     ap.add_argument('--requests', type=int, default=5)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--out', default='chiprun_out/profile_serving.json')
+    ap.add_argument('--cfg-options', nargs='+', default=[],
+                    help='dotted config overrides: key=value')
     args = ap.parse_args(argv)
 
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    bundle = init_detector(args.config, device='cuda', seed=args.seed)
+    bundle = init_detector(load_config(args), device='cuda', seed=args.seed)
+    torch.cuda.reset_peak_memory_stats()
     rs = np.random.RandomState(args.seed)
     reqs = [[rs.randint(0, 256, (1024, 2048, 3), dtype=np.uint8)
              for _ in range(2)] for _ in range(args.requests)]
@@ -177,12 +184,14 @@ def main(argv=None):
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     result = dict(
-        card=card, config=args.config, requests=args.requests,
+        card=card, config=args.config, cfg_options=args.cfg_options,
+        dtype=str(bundle.model.dtype), requests=args.requests,
         images_per_request=2, stage_ms_median=stages,
         request_ms=request_ms, request_ms_median=float(np.median(request_ms)),
         request_split_ms_median=split,
         profiled_requests=3, profiled_wall_ms=wall_ms,
         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         top_device_ops=[dict(name=k, device_ms=ms, count=c)
                         for k, ms, c in rows[:25]])
     print(card)
@@ -193,7 +202,8 @@ def main(argv=None):
     for k, v in split.items():
         print(f'request split {k:14s} {v:9.3f} ms (median of {args.requests})')
     print(f'profiled {wall_ms:.3f} ms wall for 3 requests; device busy '
-          f'{busy_ms:.3f} ms; idle share {result["device_idle_share"]:.3f}')
+          f'{busy_ms:.3f} ms; idle share {result["device_idle_share"]:.3f}; '
+          f'peak {result["peak_gib"]:.3f} GiB')
     for r in result['top_device_ops']:
         print(f'  {r["device_ms"]:9.3f} ms  x{r["count"]:<5d} '
               f'{r["name"][:100]}')

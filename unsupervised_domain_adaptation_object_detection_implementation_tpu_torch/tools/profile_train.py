@@ -2,7 +2,8 @@
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train \
         [--config configs/da/faster_rcnn_r50_daf_c2f.py] [--steps 5] \
-        [--size 512 1024] [--batch 2] [--out build/profile/profile_train.json]
+        [--size 512 1024] [--batch 2] [--out build/profile/profile_train.json] \
+        [--cfg-options model.dtype=bfloat16]
 
 Builds the trainer with seeded random weights (past the lr warmup, as
 `chip_smoke.py` runs it) and a seeded batch, by default of one source and
@@ -11,7 +12,9 @@ loop's step; the domains matter to the DA detectors only; the FPN
 and Mask R-CNN configs, configs/cityscapes/*_r50_fpn_1x_cityscapes.py and
 configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x.py, train on both images; a
 detector with a mask head also gets seeded 112x112 box-frame rasters),
-and reports:
+and reports (`--cfg-options` merges dotted overrides into the config, as
+the training command line does: `model.dtype=bfloat16` profiles the bf16
+step):
 
 - the whole `trainer.step` on the host clock, ending in a synchronize, and
   the process's CPU time in it, over all its threads (autograd runs the
@@ -48,6 +51,7 @@ import torch
 
 from ..apis import init_trainer
 from ..apis.train_state import at_count
+from .train import load_config
 
 STAGE = 'step/'
 PROFILED_STEPS = 3
@@ -138,6 +142,8 @@ def main(argv=None):
                     help='images a step, half source and half target')
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--out', default='build/profile/profile_train.json')
+    ap.add_argument('--cfg-options', nargs='+', default=[],
+                    help='dotted config overrides: key=value')
     args = ap.parse_args(argv)
 
     on_card = torch.device(args.device).type == 'cuda'
@@ -149,8 +155,10 @@ def main(argv=None):
         if on_card else 'cpu'
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
-    trainer = init_trainer(args.config, device=args.device, seed=args.seed,
-                           steps_per_epoch=STEPS_PER_EPOCH)
+    trainer = init_trainer(load_config(args), device=args.device,
+                           seed=args.seed, steps_per_epoch=STEPS_PER_EPOCH)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     state = trainer.state
     state = state._replace(opt_state=at_count(state.opt_state, 500))
     batch = demo_batch(b=args.batch, h=args.size[0], w=args.size[1],
@@ -189,7 +197,8 @@ def main(argv=None):
             and not e.key.startswith(STAGE)]
     rows.sort(key=lambda r: -r[1])
     result = dict(
-        card=card, config=args.config, steps=args.steps,
+        card=card, config=args.config, cfg_options=args.cfg_options,
+        dtype=str(trainer.model.dtype), steps=args.steps,
         images_per_step=args.batch,
         step_ms=step_ms, step_ms_median=float(np.median(step_ms)),
         host_cpu_ms=cpu_ms, host_cpu_ms_median=float(np.median(cpu_ms)),
