@@ -160,6 +160,36 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the same sampler priorities and proposals, per-term losses within
    TOL_BF16 relative.
 
+18. swin — configs/da/deepalign_swin_t_c2f.py (DeepAlign on Swin-T,
+   tapped at stage 2: stride 16, 384 channels; AdamW) in f32 and with
+   `model.dtype=bfloat16`, configs/swin/mask_rcnn_swin-t-p4-w7_fpn_1x.py
+   (Mask R-CNN Swin-T FPN, 80 classes, f32) and
+   configs/swin/mask_rcnn_swin-t-p4-w7_fpn_fp16_ms-crop-3x.py (the same in
+   bf16 with paramwise AdamW), full width, seeded weights: 2 requests of 2
+   Cityscapes-size images (the Mask configs on their 800x1344 canvas,
+   through a MultiScaleFlipAug step at their test scale, at score_thr
+   0.001 as C4, the kernel's mask features of the last
+   request's detections held to the plain version), then 1 warm-up and 3
+   timed AdamW steps (2 images 512x1024; the Mask configs 2 seeded images
+   800x1344 with box-frame rasters), each with finite losses under the JAX
+   keys and its launches; every parameter moved but those without a
+   gradient that are zero or in a paramwise group without decay (AdamW's
+   decay reaches the patch embed and stage 0, which the trunk's
+   stop-gradient leaves without a gradient and so without Adam moments);
+   the bf16 runs with f32 state and bf16 trunks. On each trained step's RoIs the pair at the run's
+   dtype against the plain version and timed: one level C=384 o=7
+   (`roi_align_pyramid_{fwd,bwd}/swin_dc16_step`, `_bf16_step`), four
+   levels o=7 (`swin_fpn_step`) and o=14 (`swin_mask_step`), and the f32
+   mask targets. Per config: request ms, step ms and peak GiB.
+19. swin loop — configs/da/synth_swin_deepalign.py through `tools.DA_train`
+   on the synth subset, as 15: 2 epochs of 4 AdamW steps with eval and a
+   checkpoint each, then a resume from ckpt_1 whose restored state (both
+   Adam moments included) equals the saved one bit for bit; build/loop/
+   emptied after.
+20. swin reference — a tiny Swin Mask R-CNN (the tiny Mask R-CNN config
+   with a Swin of embed 16, depths 2/2/2/2, AdamW): card vs CPU, inference
+   and one AdamW step, launching the pair.
+
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -174,6 +204,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -734,9 +765,10 @@ def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05):
 
 
 def _serve(card, config, label, expect, overrides=None, n_requests=4,
-           stats=None):
+           stats=None, canvas=(608, 1024)):
     """`init_detector` on `config` (full width, seeded random weights; with
-    `overrides` merged in), one warm-up request and `n_requests` timed
+    `overrides` merged in; its test pipeline must give `canvas`), one
+    warm-up request and `n_requests` timed
     requests of 2 seeded Cityscapes-size images. `expect` maps a kernel's
     name to (its launch counter, launches per request); the counters are
     set to 0 just before the timed requests and checked after each.
@@ -755,8 +787,8 @@ def _serve(card, config, label, expect, overrides=None, n_requests=4,
         f'{time.perf_counter() - t0:.2f} s; canvas {bundle.canvas}, '
         f'{sum(p.numel() for p in bundle.model.parameters()) / 1e6:.1f} M '
         'params')
-    if bundle.canvas != (608, 1024):
-        raise RuntimeError(f'canvas {bundle.canvas}, expected (608, 1024)')
+    if bundle.canvas != tuple(canvas):
+        raise RuntimeError(f'canvas {bundle.canvas}, expected {canvas}')
     rs = np.random.RandomState(0)
     requests = [[rs.randint(0, 256, (1024, 2048, 3), dtype=np.uint8)
                  for _ in range(2)] for _ in range(n_requests + 1)]
@@ -937,9 +969,10 @@ def _moved(params, start, frozen, label):
     return moved
 
 
-def _train_summary(label, what, times, peak, totals, card):
+def _train_summary(label, what, times, peak, totals, card,
+                   images='2 images 512x1024'):
     med = float(np.median(times))
-    return (f'{label}: {len(times)} steps x 2 images 512x1024 ({what}): step '
+    return (f'{label}: {len(times)} steps x {images} ({what}): step '
             f'ms {[round(t, 2) for t in times]} median {med:.2f} min '
             f'{min(times):.2f} max {max(times):.2f}; {2e3 / med:.2f} img/s; '
             f'peak memory {peak / 2**30:.2f} GiB; launches {totals} over '
@@ -997,19 +1030,19 @@ def phase_fpn_train(card, kernels):
         _set_launches(kernels, name, totals['roi_align_pyramid_bwd'])
 
 
-def fpn_level_batch():
-    """`demo_batch`'s 2 images of 512x1024 with 16 valid gt boxes an image,
-    4 on each FPN level: sqrt(area) 24..90 (P2), 120..210 (P3), 240..420
-    (P4), 470..690 px (P5), at seeded places inside the image."""
-    batch = demo_batch()
+def fpn_level_batch(hw=(512, 1024)):
+    """`demo_batch`'s 2 images (512x1024, or `hw`) with 16 valid gt boxes
+    an image, 4 on each FPN level: sqrt(area) 24..90 (P2), 120..210 (P3),
+    240..420 (P4), 470..690 px (P5), at seeded places inside the image."""
+    batch = demo_batch(h=hw[0], w=hw[1])
     b, g = batch['gt_bboxes'].shape[:2]
     side = np.array([24, 40, 64, 90, 120, 150, 180, 210, 240, 300, 360, 420,
                      470, 520, 600, 690], np.float32)[:g]
     h = np.minimum(side, 480)
     w = side * side / h
     rs = np.random.RandomState(2)
-    x1 = rs.uniform(0, 1, (b, g)) * (1024 - w)
-    y1 = rs.uniform(0, 1, (b, g)) * (512 - h)
+    x1 = rs.uniform(0, 1, (b, g)) * (hw[1] - w)
+    y1 = rs.uniform(0, 1, (b, g)) * (hw[0] - h)
     boxes = np.stack([x1, y1, x1 + w, y1 + h], -1).astype(np.float32)
     batch['gt_bboxes'] = torch.from_numpy(boxes).cuda()
     batch['gt_valid'] = torch.ones_like(batch['gt_valid'])
@@ -1133,17 +1166,22 @@ def phase_reference(config=TINY, label='tiny fixture', hw=(64, 96), seed=3):
 
 def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
                           anchors=4 * 6 * 6, proposals=64, seed=3,
-                          mask_size=None):
+                          mask_size=None, lr=0.002):
     """One tiny train step on the card (kernels) against the same step on
     the CPU (plain versions), from the same weights, TF32 off, dropout off
     and the same sampler priorities (`anchors` and 6 gt + `proposals`
     candidates per image). Per-term losses within 1e-4 relative and updated
     parameters within 1e-4 of scale: the two sides sum in other orders, the
-    RoIAlign backward with atomics."""
+    RoIAlign backward with atomics. `lr` is the config's lr here (0.002,
+    at half of it after the warmup ratio). Adam's first update is ±lr
+    whatever the gradient, so under Adam the parameters hold the update
+    rule only, and the gradients are held through both moments (the first
+    is 0.1x the clipped gradient): each within 1e-4 of the largest entry of
+    the whole moment."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config.fromfile(config) if isinstance(config, str) else config
-    cfg.merge_from_dict({'optimizer.lr': 0.002,
+    cfg.merge_from_dict({'optimizer.lr': lr,
                          'lr_config.warmup_ratio': 0.5})
     # one step at step count 0: the epoch length only places the decay
     trainers = [init_trainer(cfg, device=d, seed=seed, steps_per_epoch=1)
@@ -1160,23 +1198,35 @@ def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
         dev = trainer.device
-        _, metrics = trainer.step(
+        state, metrics = trainer.step(
             trainer.state, {k: v.to(dev) for k, v in batch.items()},
             sampler_priorities={k: v.to(dev) for k, v in pri.items()})
+        opt = state.opt_state
+        moments = [{n: t.cpu() for n, t in m.items()}
+                   for m in (opt.momentum, opt.nu)] \
+            if hasattr(opt, 'nu') else []
         results.append(({k: float(v) for k, v in metrics.items()},
                         {n: t.detach().cpu() for n, t in
-                         trainer.model.state_dict().items()}))
-    (ref_l, ref_p), (got_l, got_p) = results
+                         trainer.model.state_dict().items()}, moments))
+    (ref_l, ref_p, ref_m), (got_l, got_p, got_m) = results
     rel = max(abs(got_l[k] - v) / max(abs(v), 1e-6) for k, v in ref_l.items())
     err = max(float((got_p[n] - v).abs().max()) /
               max(1.0, float(v.abs().max())) for n, v in ref_p.items())
+    moment_errs = []
+    for got, ref in zip(got_m, ref_m):
+        whole = max(float(v.abs().max()) for v in ref.values())
+        moment_errs.append(max(float((got[n] - v).abs().max())
+                               for n, v in ref.items()) / whole)
     log(f'reference: {label} train step card vs CPU: losses '
         f'{ {k: round(v, 5) for k, v in got_l.items()} }, worst relative '
         f'loss difference {rel:.3e}, worst parameter difference {err:.3e} '
-        'of scale')
-    if set(got_l) != set(ref_l) or not rel <= 1e-4 or not err <= 1e-4:
+        'of scale' + (', worst Adam moment differences '
+                      f'{[f"{e:.3e}" for e in moment_errs]} of the whole '
+                      "moment's scale" if moment_errs else ''))
+    if set(got_l) != set(ref_l) or not rel <= 1e-4 or not err <= 1e-4 \
+            or not all(e <= 1e-4 for e in moment_errs):
         raise RuntimeError(f'train step card vs CPU: losses {rel}, '
-                           f'params {err}')
+                           f'params {err}, moments {moment_errs}')
 
 
 def phase_fpn_reference():
@@ -1446,26 +1496,31 @@ def phase_mask_serving(card, kernels):
     bundle, requests, launches = _serve(card, MASK, 'mask serving',
                                         MASK_SERVING_LAUNCHES)
     _set_launches(kernels, FWD_MASK, launches['roi_align_pyramid_fwd'])
-    # the kernel's mask features on the last request's detections
+    _served_mask_features('mask serving', bundle, requests[-1], FWD_MASK,
+                          TOL_F32)
+
+
+def _served_mask_features(label, bundle, request, name, tol):
+    """The kernel's mask features (o=14, four levels) against the plain
+    version on the detections of `request`, then `_check_masks`."""
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
-        batch, _ = prepare_batch(bundle, requests[-1])
+        batch, _ = prepare_batch(bundle, request)
         model = bundle.model
         out, maps = model._detect(batch)
         dets = out['dets'][..., :4].contiguous()
         levels = roi_align.roi_levels(dets, 4)
-        _check(FWD_MASK, fpn_fwd(maps, dets, levels, False, 14),
+        _check(name, fpn_fwd(maps, dets, levels, False, 14),
                roi_align.batched_roi_align_fpn_plain(maps, dets, out_size=14),
-               TOL_F32, f'on the last request\'s {int(out["valid"].sum())} '
+               tol, f'on the last request\'s {int(out["valid"].sum())} '
                f'detections, per level P2..P5 '
                f'{torch.bincount(levels.flatten().long(), minlength=4).tolist()}')
-        _check_masks('mask serving', model, maps, out,
-                     batch['img_shape'][0].tolist())
+        _check_masks(label, model, maps, out, batch['img_shape'][0].tolist())
 
 
-def mask_batch():
+def mask_batch(hw=(512, 1024)):
     """`fpn_level_batch` with seeded box-frame ellipse rasters (112x112)."""
-    batch = fpn_level_batch()
+    batch = fpn_level_batch(hw)
     b, g = batch['gt_valid'].shape
     batch['gt_masks'] = torch.from_numpy(ellipse_masks(
         np.random.RandomState(3), (b, g), MASK_M)).cuda()
@@ -1709,8 +1764,9 @@ def _same_payload(got, ref, what):
     for key in ('step', 'opt_count'):
         if got[key] != ref[key]:
             raise RuntimeError(f'{what}: {key} {got[key]} != {ref[key]}')
-    for key in ('params', 'buffers', 'momentum', 'ema_params'):
-        if ref[key] is None or got[key] is None:   # no EMA (the GAN step)
+    for key in ('params', 'buffers', 'momentum', 'nu', 'ema_params'):
+        # no EMA (the GAN step), no second moment (SGD)
+        if ref[key] is None or got[key] is None:
             if (ref[key] is None) != (got[key] is None):
                 raise RuntimeError(f'{what}: {key} kept on one side only')
             continue
@@ -2322,19 +2378,27 @@ def _compute_types(label, model, batch):
             + (', CycleGAN f32' if gan is not None else ''))
 
 
-def bf16_step_kernels(regime, model, batch):
-    """The pair at bf16 against its plain version on the RoIs that a step
-    of the trained bf16 `model` samples from `batch`, on its own bf16 maps:
-    forward and backward (a seeded bf16 cotangent) within TOL_BF16, then
-    both timed beside the plain version. Bytes at 2 an element, 4 for the
-    backward's f32 buffer. Returns the two entries."""
-    fwd_name, bwd_name, fwd_line, bwd_line = BF16_REGIMES[regime]
+def pair_step_kernels(regime, model, batch, names=None,
+                      dtype=torch.bfloat16):
+    """The pair at `dtype` (bf16 by default) against its plain version on
+    the RoIs that a step of the trained `model` samples from `batch`, on
+    its own maps: forward and backward (a seeded cotangent in `dtype`)
+    within TOL_BF16 (TOL_F32 at f32), then both timed beside the plain
+    version. `regime` gives the geometry: 'dc5' one level at stride 16,
+    o=7; 'c4' one level, o=14; 'fpn' four levels, o=7; 'mask' four levels,
+    o=14. `names` are (forward entry, backward entry, lines of the JAX
+    kernels they replace), by default the bf16 regime's. Bytes at the
+    element size, 4 for the backward's f32 buffer. Returns the two
+    entries."""
+    fwd_name, bwd_name, fwd_line, bwd_line = names or BF16_REGIMES[regime]
     maps, sampled, gen = sample_step_rois(model, batch, 3)
     rois = sampled.rois
     one = regime in ('dc5', 'c4')
     maps = [maps] if one else list(maps)
-    if any(m.dtype != torch.bfloat16 for m in maps):
-        raise RuntimeError(f'{regime}: RoIAlign maps not in bf16')
+    if any(m.dtype != dtype for m in maps):
+        raise RuntimeError(f'{regime}: RoIAlign maps not in {dtype}')
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    elem = torch.finfo(dtype).bits // 8
     levels = None if one else roi_align.roi_levels(rois, 4).contiguous()
     scales = (1 / 16,) if one else FPN_SCALES
     out_size = 14 if regime in ('mask', 'c4') else 7
@@ -2353,10 +2417,10 @@ def bf16_step_kernels(regime, model, batch):
             fs, rois, out_size=out_size, flatten=flatten)
 
     got = fwd()
-    what = f"bf16 on a step's {tuple(rois.shape[:2])} sampled RoIs"
-    err_f = _check(fwd_name, got, plain(maps), TOL_BF16, what)
-    grad = torch.randn(got.shape, generator=gen,
-                       device='cuda').to(torch.bfloat16)
+    what = f"{str(dtype)[6:]} on a step's {tuple(rois.shape[:2])} sampled " \
+        'RoIs'
+    err_f = _check(fwd_name, got, plain(maps), tol, what)
+    grad = torch.randn(got.shape, generator=gen, device='cuda').to(dtype)
 
     def bwd():
         return roi_align.roi_align_pyramid_bwd_cuda(
@@ -2364,26 +2428,28 @@ def bf16_step_kernels(regime, model, batch):
 
     fs = [m.detach().requires_grad_() for m in maps]
     ref = torch.autograd.grad(plain(fs), fs, grad)
-    err_b = max(_check(bwd_name, g, r, TOL_BF16, f'{what}, level {i}')
+    err_b = max(_check(bwd_name, g, r, tol, f'{what}, level {i}')
                 for i, (g, r) in enumerate(zip(bwd(), ref)))
     ms_f, ms_b = time_ms(fwd, 20), time_ms(bwd, 20)
     plain_f = time_ms(lambda: plain(maps), 3, warmup=1)
     plain_b = plain_backward_ms(plain, maps, grad)
     sizes, c = [s[1:3] for s in shapes], shapes[0][3]
     if one:
-        work_f = roi_align_work(rois, *sizes[0], c, out_size, elem=2)
+        work_f = roi_align_work(rois, *sizes[0], c, out_size, elem=elem)
         work_b = roi_align_work(rois, *sizes[0], c, out_size, backward=True,
-                                elem=2)
+                                elem=elem)
     else:
-        work_f = roi_align_fpn_work(rois, levels, sizes, c, out_size, elem=2)
+        work_f = roi_align_fpn_work(rois, levels, sizes, c, out_size,
+                                    elem=elem)
         work_b = roi_align_fpn_work(rois, levels, sizes, c, out_size,
-                                    backward=True, elem=2)
+                                    backward=True, elem=elem)
     entries = [_entry(fwd_name, fwd_line, *work_f, max_abs_err=err_f,
                       ms=ms_f, plain_ms=plain_f),
                _entry(bwd_name, bwd_line, *work_b, max_abs_err=err_b,
                       ms=ms_b, plain_ms=plain_b)]
     for e, (nbytes, ops) in zip(entries, (work_f, work_b)):
-        log(f'kernels: {e["name"]} bf16 {shapes} C={c} o={out_size} x '
+        log(f'kernels: {e["name"]} {str(dtype)[6:]} {shapes} C={c} '
+            f'o={out_size} x '
             f'{rois.shape[0]}x{rois.shape[1]} rois: {e["ms"]:.4f} ms, '
             f'plain {e["plain_ms"]:.4f} ms, bound {e["bound_ms"]:.4f} ms '
             f'({e["bound_by"]}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} '
@@ -2484,7 +2550,7 @@ def phase_bf16(card, kernels):
                     f'max {max(times):.2f}), peak {peak / 2**30:.2f} GiB')
         if regime not in held:
             kb = fpn_level_batch() if regime == 'fpn' else batch
-            kernels += bf16_step_kernels(regime, trainer.model, kb)
+            kernels += pair_step_kernels(regime, trainer.model, kb)
             held.add(regime)
         del trainer, state, start
         _free()
@@ -2602,6 +2668,279 @@ def phase_bf16_reference():
                                f'{rel}')
 
 
+# ---- the Swin slice: DeepAlign-Swin and Mask R-CNN Swin-T, AdamW ----------
+
+DA_SWIN = 'configs/da/deepalign_swin_t_c2f.py'
+MASK_SWIN = 'configs/swin/mask_rcnn_swin-t-p4-w7_fpn_1x.py'
+MASK_SWIN_BF16 = 'configs/swin/mask_rcnn_swin-t-p4-w7_fpn_fp16_ms-crop-3x.py'
+SYNTH_SWIN = 'configs/da/synth_swin_deepalign.py'
+# the COCO configs' serving and training canvas
+COCO_CANVAS = (800, 1344)
+# their serving: `init_detector` takes the canvas only from a
+# MultiScaleFlipAug test step, which the COCO test pipeline lacks (it would
+# serve on 608x1024), so one is given at the pipeline's own Resize scale;
+# random weights score each of the 80 classes ~1/81, so they serve at
+# score_thr 0.001, as C4, to reach the mask branch
+COCO_SERVING = {'data.test.pipeline': [dict(type='MultiScaleFlipAug',
+                                            img_scale=(1333, 800))],
+                'model.roi_test_cfg': dict(score_thr=0.001)}
+# the pair's Swin regimes: (geometry, dtype) → (forward entry, backward
+# entry, lines of the JAX kernels they replace)
+SWIN_REGIMES = {
+    ('dc5', torch.float32): ('roi_align_pyramid_fwd/swin_dc16_step',
+                             'roi_align_pyramid_bwd/swin_dc16_step', 63, 303),
+    ('dc5', torch.bfloat16): ('roi_align_pyramid_fwd/swin_dc16_bf16_step',
+                              'roi_align_pyramid_bwd/swin_dc16_bf16_step',
+                              237, 303),
+    ('fpn', torch.float32): ('roi_align_pyramid_fwd/swin_fpn_step',
+                             'roi_align_pyramid_bwd/swin_fpn_step', 944, 889),
+    ('fpn', torch.bfloat16): ('roi_align_pyramid_fwd/swin_fpn_bf16_step',
+                              'roi_align_pyramid_bwd/swin_fpn_bf16_step',
+                              1181, 1121),
+    ('mask', torch.float32): ('roi_align_pyramid_fwd/swin_mask_step',
+                              'roi_align_pyramid_bwd/swin_mask_step', 944,
+                              889),
+    ('mask', torch.bfloat16): ('roi_align_pyramid_fwd/swin_mask_bf16_step',
+                               'roi_align_pyramid_bwd/swin_mask_bf16_step',
+                               944, 889),
+}
+# the tiny Swin of the card-vs-CPU reference (embed 16, depths 2/2/2/2) in
+# the tiny Mask R-CNN, trained with AdamW; the weight seed is one whose top
+# 65 RPN logits lie >= 2.2e-5 apart on the reference images and on the
+# train batch (a CPU count)
+SWIN_TINY = {'model.backbone_cfg': dict(type='SwinTransformer', embed_dims=16,
+                                        depths=(2, 2, 2, 2),
+                                        num_heads=(1, 2, 2, 4)),
+             'optimizer': dict(type='AdamW', lr=1e-4, weight_decay=0.05)}
+SWIN_TINY_SEED = 41
+# its one reference step: Adam's first update is ±lr on every element whose
+# gradient lies within rounding of zero, with a sign card and CPU set
+# independently; at this lr (2e-5, 1e-5 after the warmup ratio) those
+# elements stay within the 1e-4 parameter tolerance, which therefore holds
+# the update rule only; the moments hold the gradients
+SWIN_TINY_LR = 2e-5
+
+
+def _swin_trunk_checks(label, trainer, state, trunk):
+    """AdamW's state: both moments, none for the patch embed (the trunk
+    detaches its map after stage 0, `frozen_stages=1`), both for stage 1;
+    no parameter frozen (the frozen mask matches no Swin name). Returns
+    the paramwise groups' sizes."""
+    opt = state.opt_state
+    if trainer.spec.opt_type != 'adamw' or not hasattr(opt, 'nu'):
+        raise RuntimeError(f'{label}: optimizer {trainer.spec.opt_type}')
+    if not all(trainer.optimizer.trainable.values()):
+        raise RuntimeError(f'{label}: a Swin parameter frozen')
+    if opt.nu[f'{trunk}.patch_embed.weight'].any() or \
+            not opt.nu[f'{trunk}.stage1.block0.mlp_fc1.weight'].any():
+        raise RuntimeError(f'{label}: the stop-gradient after stage 0 '
+                           'does not show in the second moment')
+    return {k: len(v) for k, v in trainer.optimizer.groups.items()}
+
+
+def _adamw_moved(params, start, state, tx, label):
+    """The number of parameters that moved; raises unless every one did
+    but those that AdamW leaves as they are: without a gradient (both
+    moments 0, behind the trunk's stop-gradient) and either all zero at
+    the start (a decoupled decay of 0 is 0) or in a paramwise group with
+    no decay (the norms under the Swin configs' `paramwise_cfg`)."""
+    decay = {n: wd for (_, wd), names in tx.groups.items() for n in names}
+    moved = 0
+    for n, p in params.items():
+        if not torch.equal(p.detach(), start[n]):
+            moved += 1
+        elif (start[n].any() and decay[n]) \
+                or state.opt_state.momentum[n].any() \
+                or state.opt_state.nu[n].any():
+            raise RuntimeError(f'{label}: {n} unchanged after the steps')
+    return moved
+
+
+class SwinRun(NamedTuple):
+    """One config of `phase_swin`: how it serves and trains, what its
+    steps log and which of the pair's regimes it runs."""
+    label: str
+    config: str
+    overrides: dict
+    canvas: Tuple[int, int]
+    serving: dict              # launches a request, as SERVING_LAUNCHES
+    steps_per_epoch: int
+    counters: dict             # launches a step, as STEP_LAUNCHES
+    make_batch: Callable       # the train batch
+    kernel_batch: Callable     # the batch the pair is held on
+    keys: set                  # the loss terms of a step
+    regimes: Tuple[str, ...]   # keys of SWIN_REGIMES
+    trunk: str                 # the trunk's module path
+
+
+def _coco_batch():
+    return demo_batch(h=COCO_CANVAS[0], w=COCO_CANVAS[1], mask_size=MASK_M)
+
+
+def phase_swin(card, kernels):
+    """DeepAlign-Swin (f32 and bf16) and the two Mask R-CNN Swin-T configs
+    (1x in f32, the fp16 ms-crop config in bf16 with paramwise AdamW) at
+    full width: 2 requests served, 1 warm-up and 3 timed AdamW steps, the
+    launches counted, the parameters moved (`_adamw_moved`), the pair held
+    and timed on each run's step RoIs. A Mask Swin run's two regimes (o=7
+    box and o=14 mask features) share one count: the pair's launches on
+    that path, box, mask and mask targets together."""
+    da = dict(canvas=(608, 1024), serving=SERVING_LAUNCHES,
+              steps_per_epoch=CITYSCAPES_STEPS, counters=STEP_LAUNCHES,
+              make_batch=demo_batch, kernel_batch=demo_batch,
+              keys=DET_KEYS | TAP_KEYS, regimes=('dc5',),
+              trunk='backbone.trunk')
+    coco = dict(canvas=COCO_CANVAS, serving=MASK_SERVING_LAUNCHES,
+                steps_per_epoch=COCO_STEPS, counters=MASK_STEP_LAUNCHES,
+                make_batch=_coco_batch,
+                kernel_batch=lambda: mask_batch(COCO_CANVAS),
+                keys=DET_KEYS | {'loss_mask'}, regimes=('fpn', 'mask'),
+                trunk='backbone')
+    runs = (SwinRun('swin da', DA_SWIN, {}, **da),
+            SwinRun('swin da bf16', DA_SWIN, BF16, **da),
+            SwinRun('swin mask', MASK_SWIN, {}, **coco),
+            SwinRun('swin mask bf16 paramwise', MASK_SWIN_BF16, {}, **coco))
+    launches = {}
+    rows = []
+    for run in runs:
+        label, config, over, regimes = run.label, run.config, \
+            run.overrides, run.regimes
+        mask = 'mask' in regimes
+        stats = {}
+        bundle, requests, served = _serve(
+            card, config, f'{label} serving', run.serving,
+            overrides=dict(over, **(COCO_SERVING if mask else {})),
+            n_requests=2, stats=stats, canvas=run.canvas)
+        dtype = bundle.model.dtype
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        names = [SWIN_REGIMES[(r, dtype)] for r in regimes]
+        for fwd_name, _, _, _ in names:
+            launches[fwd_name] = served['roi_align_pyramid_fwd']
+        if mask:
+            if not stats['dets']:
+                raise RuntimeError(f'{label}: no detection in any request')
+            _served_mask_features(f'{label} serving', bundle, requests[-1],
+                                  names[-1][0], tol)
+        del bundle
+        _free()
+        trainer, state, start, times, totals, peak = _train(
+            card, config, run.steps_per_epoch, f'{label} train', run.counters,
+            run.make_batch(), steps=3, keys=run.keys, overrides=over)
+        if trainer.model.dtype != dtype:
+            raise RuntimeError(f'{label}: trained in {trainer.model.dtype}, '
+                               f'served in {dtype}')
+        for fwd_name, bwd_name, _, _ in names:
+            launches[fwd_name] += totals['roi_align_pyramid_fwd']
+            launches[bwd_name] = totals['roi_align_pyramid_bwd']
+        moved = _adamw_moved(trainer.state.params, start, state,
+                             trainer.optimizer, label)
+        groups = _swin_trunk_checks(label, trainer, state, run.trunk)
+        extra = ''
+        if dtype == torch.bfloat16:
+            extra = f'; {_all_f32(label, state)} parameter, gradient, ' \
+                f'moment and EMA tensors f32; ' \
+                f'{_compute_types(label, trainer.model, run.make_batch())}'
+        log(_train_summary(f'{label} train', f'{config} '
+                           f'{str(dtype)[6:]}', times, peak, totals, card,
+                           '2 images 800x1344' if mask else
+                           '2 images 512x1024')
+            + f'; {moved} of {len(start)} parameters moved (the rest without '
+            'a gradient and zero or undecayed); AdamW groups (lr_mult, '
+            f'decay_mult): sizes {groups}{extra}')
+        if mask and len(groups) != (2 if 'paramwise' in label else 1):
+            raise RuntimeError(f'{label}: paramwise groups {groups}')
+        batch = run.kernel_batch()
+        for regime, regime_names in zip(regimes, names):
+            kernels += pair_step_kernels(regime, trainer.model, batch,
+                                         regime_names, dtype)
+        if mask and dtype == torch.float32:
+            _, sampled, _ = sample_step_rois(trainer.model, batch, 3)
+            _targets_on_sampled_rois(label, batch, sampled, 28)
+        rows.append(f'{label} {config}: request ms mean '
+                    f'{np.mean(stats["latencies"]):.2f} '
+                    f'{[round(t, 2) for t in stats["latencies"]]}, serving '
+                    f'peak {stats["peak"] / 2**30:.2f} GiB; step ms median '
+                    f'{float(np.median(times)):.2f} (min {min(times):.2f} '
+                    f'max {max(times):.2f}), train peak '
+                    f'{peak / 2**30:.2f} GiB')
+        del trainer, state, start
+        _free()
+    for name, n in launches.items():
+        _set_launches(kernels, name, n)
+    for row in rows:
+        log(f'swin summary: {row} [{card}]')
+
+
+def phase_swin_loop(card):
+    """configs/da/synth_swin_deepalign.py through `tools.DA_train` on the
+    committed synth subset: 2 epochs of 4 AdamW steps with eval and a
+    checkpoint each, then a resume from ckpt_1 whose restored state
+    (parameters, buffers, both Adam moments and the count, EMA, step)
+    equals the saved one bit for bit. Empties build/loop/ afterwards."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    argv = [SYNTH_SWIN, '--work-dir', LOOP_DIR, '--cfg-options',
+            *LOOP_OPTIONS]
+    cfg = DA_train.load_config(DA_train.parse_args(argv))
+    eval_batches = -(-len(build_dataset(cfg.data['val'])) // 8)
+    metrics, fwd, bwd, seconds = _run_cli(argv, 8, 2 * eval_batches)
+    recs = _check_log(f'{LOOP_DIR}/train_log.jsonl', [1, 2])
+    saved = ckpt_io.load_checkpoint(f'{LOOP_DIR}/ckpt_1', 'cuda')
+    if saved['nu'] is None or saved['ema_params'] is None or \
+            not any(n.startswith('backbone.trunk.stage') for n in saved['nu']):
+        raise RuntimeError('swin loop: the checkpoint lacks the Adam '
+                           'moments or the EMA')
+    restored = []
+    original = train_api.restore_train_state
+
+    def spy(model, state, ckpt):
+        state = original(model, state, ckpt)
+        restored.append({k: v.clone() if torch.is_tensor(v) else
+                         ({n: t.clone() for n, t in v.items()}
+                          if isinstance(v, dict) else v)
+                         for k, v in ckpt_io.train_state_dict(
+                             model, state).items()})
+        return state
+    train_api.restore_train_state = spy
+    try:
+        _run_cli(argv + ['--resume-from', f'{LOOP_DIR}/ckpt_1'], 4,
+                 eval_batches)
+    finally:
+        train_api.restore_train_state = original
+    _same_payload(restored[0], saved, 'swin resume')
+    log(f'swin loop: DA_train DeepAlign-Swin (Swin-T, AdamW, clip 35, EMA '
+        f'0.999) 2 epochs x 4 steps of 8 images 128x192 in {seconds:.2f} s '
+        f'with 2 evals and 2 checkpoints; launches fwd {fwd} bwd {bwd}; '
+        f'resumed from ckpt_1 at step {saved["step"]}: params, buffers, both '
+        f'Adam moments ({len(saved["nu"])} tensors each), count, EMA and '
+        f'step equal to the saved ones, bit for bit; records {recs}; final '
+        f'{metrics} [{card}]')
+    shutil.rmtree(LOOP_DIR)
+
+
+def phase_swin_reference():
+    """A tiny Swin Mask R-CNN (configs/da/synth_mask_smoke.py with
+    `backbone_cfg` a Swin of embed 16, depths 2/2/2/2; AdamW): card vs CPU,
+    inference (detections within 1e-3, masks within 1e-4) and one AdamW
+    step (losses 1e-4 relative, parameters 1e-4 of scale, both moments,
+    hence the gradients, 1e-4 of the whole moment's scale), launching the
+    pair."""
+    label = 'tiny Swin Mask R-CNN'
+    over = dict(FEW_PROPOSALS, **SWIN_TINY)
+    before = FWD.launches, BWD.launches
+    phase_reference(_tiny_cfg(MASK_TINY, over), label, (100, 150),
+                    SWIN_TINY_SEED)
+    phase_reference_train(_tiny_cfg(MASK_TINY, over), label, (128, 192),
+                          3 * sum(-(-128 // st) * -(-192 // st)
+                                  for st in (4, 8, 16, 32, 64)), 32,
+                          SWIN_TINY_SEED, mask_size=MASK_M, lr=SWIN_TINY_LR)
+    got = (FWD.launches - before[0], BWD.launches - before[1])
+    if got != (7, 2):
+        raise RuntimeError(f'{label} on the card launched the pair {got} '
+                           'times, expected (7, 2)')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2625,6 +2964,9 @@ def main():
     phase_da_family_reference()
     phase_bf16(card, kernels)
     phase_bf16_reference()
+    phase_swin(card, kernels)
+    phase_swin_loop(card)
+    phase_swin_reference()
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

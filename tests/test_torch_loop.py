@@ -301,6 +301,41 @@ def test_load_from_loads_weights_and_no_optimizer_state(run, tmp_path,
                for n, v in saved['buffers'].items())
 
 
+def test_pretrained_backbone_loads_the_trunk_before_training(tmp_path,
+                                                            monkeypatch):
+    """A torchvision ResNet checkpoint lands in the trunk (its BN
+    statistics in the frozen BNs' buffers) before the first step, the EMA
+    restarts from it, and the rest keeps its seeded weights."""
+    from .test_torch_swin import _torchvision_r18_state_dict
+    made = []
+    orig = ttrain.init_trainer
+
+    def capture(*a, **k):
+        made.append(orig(*a, **k))
+        seeded.update({n: t.clone() for n, t in
+                       made[-1].model.state_dict().items()})
+        return made[-1]
+    seeded = {}
+    monkeypatch.setattr(ttrain, 'init_trainer', capture)
+    sd = _torchvision_r18_state_dict(np.random.RandomState(0))
+    torch.save(sd, tmp_path / 'r18.pth')
+    cfg = da_train.load_config(da_train.parse_args(
+        _argv(tmp_path, 'runner.max_epochs=0')))
+    ttrain.train_detector(cfg, str(tmp_path), device='cpu',
+                          pretrained_backbone=str(tmp_path / 'r18.pth'))
+    model, state = made[0].model, made[0].state
+    got = model.state_dict()
+    np.testing.assert_array_equal(
+        got['backbone.trunk.layer1.0.conv1.weight'].numpy(),
+        sd['layer1.0.conv1.weight'].numpy())
+    np.testing.assert_array_equal(got['backbone.trunk.bn1.var'].numpy(),
+                                  sd['bn1.running_var'].numpy())
+    for n, t in got.items():
+        assert torch.equal(t, seeded[n]) != n.startswith('backbone.trunk.'), n
+    for n, p in state.params.items():
+        assert torch.equal(state.ema_params[n], p)
+
+
 def test_iteration_based_runner(tmp_path):
     """`IterBasedRunner`: steps count across epochs, checkpoints and evals
     at step intervals and at the end, records keyed by `iter`."""
@@ -330,12 +365,17 @@ def test_max_epochs_overrides_the_runner_not_the_callers_config(tmp_path):
     ({}, {'mesh': dict(data=-1, model=2)}, 'mesh'),
     ({}, {'dist_params': dict(backend='nccl')}, 'dist_params'),
     ({}, {'load_submodule': dict(teacher='x')}, 'load_submodule'),
-    (dict(pretrained_backbone='r50.pth'), {}, 'pretrained_backbone'),
+    (dict(pretrained_backbone='pvt.pth'), {}, 'pretrained_backbone'),
     ({}, {'fp16': dict(loss_scale=512.0), 'model.dtype': 'float16'}, 'fp16'),
 ])
 def test_refused_options_raise(tmp_path, kwargs, cfg_over, match):
     cfg = tconfig.Config.fromfile(TINY)
     cfg.merge_from_dict(cfg_over)
+    if 'pretrained_backbone' in kwargs:
+        # a checkpoint of a trunk the port does not have (PVT)
+        path = tmp_path / kwargs['pretrained_backbone']
+        torch.save({'patch_embed1.proj.weight': torch.zeros(2)}, path)
+        kwargs = dict(kwargs, pretrained_backbone=str(path))
     with pytest.raises(NotImplementedError, match=match):
         ttrain.train_detector(cfg, str(tmp_path / 'wd'), device='cpu',
                               **kwargs)

@@ -88,12 +88,23 @@ def test_da_resnet_inference_matches_and_heads_raise():
                         with_da=False)
     assert da == {}
     _close(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref))
-    # the heads of the other variants (MAF's SRM) run now; what still
-    # raises is the Swin trunk
+    # the heads of the other variants (MAF's SRM) run now
     maf = tda.DAResNet(depth=18, taps=tda.VARIANT_TAPS['maf'])
     with torch.no_grad():
         _, da = maf(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert {k: tuple(v.shape) for k, v in da.items()} == {
         'srm_s1_0': (1, 2), 'srm_s2_1': (1, 2), 'srm_s3_2': (1, 2)}
-    with pytest.raises(NotImplementedError, match='Swin'):
-        tda.DAResNet(depth=18, trunk_type='swin')
+    # and so does the Swin trunk: Swin-T tapped at stage 2, as the JAX one
+    jswin = jda.DAResNet(trunk_type='swin', out_indices=(2,))
+    tswin = tda.DAResNet(trunk_type='swin', out_indices=(2,)).eval()
+    shapes = jax.eval_shape(lambda: jswin.init(jax.random.PRNGKey(0),
+                                               jnp.asarray(x), train=False))
+    variables = fill_variables(shapes, rs)
+    assert convert.load_jax_variables(tswin, variables) == []
+    (ref,), _ = jswin.apply(variables, jnp.asarray(x), train=False,
+                            with_da=False)
+    with torch.no_grad():
+        (got,), _ = tswin(torch.from_numpy(x).permute(0, 3, 1, 2),
+                          with_da=False)
+    assert got.shape[1] == 384
+    _close(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref))

@@ -38,13 +38,15 @@ from ..models.builder import build_detector, train_canvas
 from ..models.layers.precision import compute_dtype
 from ..models.weight_init import init_random_weights_
 from ..utils.checkpoint import (latest_checkpoint, load_checkpoint,
-                                load_weights, restore_train_state,
-                                save_checkpoint, train_state_dict)
+                                load_pretrained_backbone, load_weights,
+                                read_pretrained_backbone,
+                                restore_train_state, save_checkpoint,
+                                train_state_dict)
 from ..utils.config import Config
 from ..utils.convert import load_jax_variables
 from ..utils.device import resolve_device
 from .test import evaluate_dataset
-from .train_state import (OptimizerSpec, TrainState, _FusedSGD,
+from .train_state import (OptimizerSpec, TrainState, _FusedOptimizer,
                           create_gan_train_state, create_train_state,
                           make_gan_train_step, make_train_step)
 
@@ -63,7 +65,7 @@ class Trainer(NamedTuple):
     model: torch.nn.Module
     state: TrainState
     step: Callable
-    optimizer: Union[_FusedSGD, Tuple[_FusedSGD, _FusedSGD]]
+    optimizer: Union[_FusedOptimizer, Tuple[_FusedOptimizer, ...]]
     spec: OptimizerSpec
     cfg: Config
     device: torch.device
@@ -154,8 +156,9 @@ def init_trainer(config: Union[str, Config],
     """Build the config's detector on `device` (CUDA unless the caller asks
     for the CPU; raises without a card), with `variables` converted from
     the JAX package or seeded random weights, in train mode and with
-    channels_last convolution weights; then its train state and step: SGD
-    per the config, the stem and `backbone.frozen_stages` stages frozen,
+    channels_last convolution weights; then its train state and step: the
+    optimizer of `optimizer.type` (SGD, Adam or AdamW, with its
+    `paramwise_cfg`), the stem and `backbone.frozen_stages` stages frozen,
     the EMA when the config asks for one, and the NaN guard by default for
     the adversarial detectors (`optimizer_config.nan_guard` overrides).
     The CycleGAN detectors get the two-group step instead, with no EMA
@@ -194,7 +197,7 @@ def init_trainer(config: Union[str, Config],
     return Trainer(model, state, step, tx, spec, cfg, device)
 
 
-def _refuse_unported(cfg: Config, pretrained_backbone, n_devices, launcher):
+def _refuse_unported(cfg: Config, n_devices, launcher):
     """Raise on what the single-device loop does not port, each with its
     reason, before the loop makes its work dir: an unported compute type
     (float16) among them."""
@@ -209,8 +212,6 @@ def _refuse_unported(cfg: Config, pretrained_backbone, n_devices, launcher):
          'trains on one device; multi-GPU training comes with its own slice'),
         (bool(cfg.get('load_submodule')), 'a `load_submodule` block: '
          'grafting a donor checkpoint into a submodule is not ported yet'),
-        (bool(pretrained_backbone), 'pretrained_backbone: the repository '
-         'holds no backbone weights; the port trains from seeded weights'),
     ]
     for hit, reason in refused:
         if hit:
@@ -238,6 +239,15 @@ def _eval_weights(model: torch.nn.Module, state: TrainState):
             with torch.no_grad():
                 for n, p in state.params.items():
                     p.copy_(live[n])
+
+
+@torch.no_grad()
+def _restart_ema(state: TrainState):
+    """The EMA (when the trainer keeps one) restarted from the live
+    parameters."""
+    if state.ema_params is not None:
+        for n, p in state.params.items():
+            state.ema_params[n].copy_(p)
 
 
 def _sampler_seed(seed: int, step: int) -> int:
@@ -270,15 +280,28 @@ def train_detector(cfg: Config, work_dir: str,
     go to `work_dir/ckpt_<epoch or step>`, at the interval and at the end.
     `resume_from` (a checkpoint, or 'auto' for the work dir's latest)
     restores the whole state and starts at epoch step // steps per epoch;
-    `load_from` loads the weights alone (the EMA restarts from them). The
+    `load_from` loads the weights alone (the EMA restarts from them);
+    `pretrained_backbone`, a classification checkpoint of the trunk
+    (`utils/checkpoint.py:load_pretrained_backbone`: official Swin or
+    torchvision ResNet), is loaded before either, and the EMA restarts
+    from it. The
     samplers draw from a `torch.Generator` on `device` seeded at every step
     from `seed + 1` and the step (`_sampler_seed`), so a resumed run draws
     what an uninterrupted one does; the loader's sampler and the datasets
     draw from `seed`.
 
-    Multi-device training, submodule grafting and pretrained backbones
-    raise NotImplementedError."""
-    _refuse_unported(cfg, pretrained_backbone, n_devices, launcher)
+    Multi-device training and submodule grafting raise
+    NotImplementedError."""
+    _refuse_unported(cfg, n_devices, launcher)
+    pretrained = None
+    if pretrained_backbone:
+        # read first: a layout the port has no trunk for raises before the
+        # work dir is made
+        try:
+            pretrained = read_pretrained_backbone(pretrained_backbone)
+        except NotImplementedError as err:
+            raise NotImplementedError(
+                f'pretrained_backbone={pretrained_backbone!r}: {err}') from err
     device = resolve_device(device)
     os.makedirs(work_dir, exist_ok=True)
     if max_epochs and 'Iter' not in str((cfg.get('runner') or {}).get(
@@ -307,6 +330,9 @@ def train_detector(cfg: Config, work_dir: str,
     checkpoint_interval = (cfg.get('checkpoint_config', {}) or {}).get(
         'interval', checkpoint_interval)
 
+    if pretrained is not None:
+        load_pretrained_backbone(model, pretrained)
+        _restart_ema(state)
     start_epoch = 0
     if resume_from:
         path = latest_checkpoint(work_dir) if resume_from == 'auto' \
@@ -318,10 +344,7 @@ def train_detector(cfg: Config, work_dir: str,
             print(f'[train] resumed from {path} (epoch {start_epoch})')
     elif load_from:
         load_weights(model, load_checkpoint(load_from, device), ema=False)
-        if state.ema_params is not None:
-            with torch.no_grad():
-                for n, p in state.params.items():
-                    state.ema_params[n].copy_(p)
+        _restart_ema(state)
         print(f'[train] loaded weights from {load_from}')
 
     gen = torch.Generator(device=device)

@@ -1,14 +1,16 @@
 """Data pipeline (counterpart of the JAX package's
 `data/pipelines/transforms.py`: `LoadImageFromFile`, `LoadAnnotations`,
-keep-ratio and multi-scale `Resize`, `RandomFlip`, `Normalize`, `Pad`,
-`PackDetInputs`, `MultiScaleFlipAug`, `Compose`).
+keep-ratio and multi-scale `Resize`, `RandomFlip`,
+`PhotoMetricDistortion`, `Normalize`, `Pad`, `PackDetInputs`,
+`MultiScaleFlipAug`, `Compose`).
 
 Each transform is a callable on a `results` dict whose `img` is an (H, W, 3)
 RGB torch tensor — uint8 until `Normalize`, float32 after — on the device
 named by `results['device']` (the dataset's): the image is decoded on the
 host (`jpeg.decode_jpeg`, no PIL or cv2), then moved to that device, where
 every later step runs. Meta entries (`img_shape`, `scale_factor`, gt blocks) are
-small numpy arrays, as in the JAX package. Random draws (scale, flip) come
+small numpy arrays, as in the JAX package. Random draws (scale, flip,
+photometric jitter) come
 from `results['_rng']`, the dataset's `np.random.RandomState`, in the JAX
 package's order.
 """
@@ -68,14 +70,18 @@ def _resize_pass(src: torch.Tensor, lo: np.ndarray, w: np.ndarray,
 
 
 def imresize(img: torch.Tensor, size_wh: Tuple[int, int]) -> torch.Tensor:
-    """Antialiased bilinear resize of an (H, W, C) uint8 tensor to (w, h):
-    horizontal pass into float32, vertical pass, round half up, clip."""
+    """Antialiased bilinear resize of an (H, W, C) tensor to (w, h):
+    horizontal pass into float32, vertical pass; a uint8 image is then
+    rounded half up and clipped back to uint8, a float one (after
+    `PhotoMetricDistortion`) stays float32."""
     tw, th = size_wh
     h, w = img.shape[:2]
     lo_x, w_x = _resize_taps(w, tw)
     lo_y, w_y = _resize_taps(h, th)
     tmp = _resize_pass(img.float(), lo_x, w_x, axis=1)
     out = _resize_pass(tmp, lo_y, w_y, axis=0)
+    if img.is_floating_point():
+        return out
     return torch.floor(out + 0.5).clamp(0, 255).to(torch.uint8)
 
 
@@ -208,6 +214,39 @@ class RandomFlip:
                 boxes[:, 0] = w - results['gt_bboxes'][:, 2]
                 boxes[:, 2] = w - results['gt_bboxes'][:, 0]
                 results['gt_bboxes'] = boxes
+        return results
+
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """The JAX package's numpy photometric jitter (not mmdet's HSV one):
+    each with probability 1/2, brightness (+ U(−δ, δ)), contrast
+    (× U(contrast_range)) and a saturation mix about the channel mean
+    (gray + (img − gray) · U(saturation_range)), then one clip to [0, 255];
+    the image becomes float32. The draws come from `results['_rng']` in
+    the JAX order: for each step a `randint(2)`, then its `uniform` when it
+    applies. `hue_delta` is accepted and unused, as there."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_range = contrast_range
+        self.saturation_range = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results):
+        rng = results.get('_rng', np.random)
+        img = results['img'].float()
+        if rng.randint(2):
+            img = img + float(np.float32(rng.uniform(
+                -self.brightness_delta, self.brightness_delta)))
+        if rng.randint(2):
+            img = img * float(np.float32(rng.uniform(*self.contrast_range)))
+        if rng.randint(2):
+            gray = img.mean(dim=2, keepdim=True)
+            alpha = float(np.float32(rng.uniform(*self.saturation_range)))
+            img = gray + (img - gray) * alpha
+        results['img'] = img.clamp(0, 255)
         return results
 
 

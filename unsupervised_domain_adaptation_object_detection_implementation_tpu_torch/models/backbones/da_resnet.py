@@ -1,8 +1,9 @@
-"""Domain-adaptive ResNet trunk (counterpart of the JAX package's
+"""Domain-adaptive trunk (counterpart of the JAX package's
 `models/backbones/da_resnet.py`).
 
-The trunk is the JAX one's: a `ResNet` named `trunk`, so the converted
-weights load as `backbone.trunk.*`. Each entry of `taps` puts a GRL
+The trunk is the JAX one's: a `ResNet`, or with `trunk_type='swin'` a
+Swin-T (`swin.py`, whose taps take its widths 96/192/384/768), named
+`trunk`, so the converted weights load as `backbone.trunk.*`. Each entry of `taps` puts a GRL
 alignment head on a stage, named `{kind}_s{stage}_{i}` as in the JAX
 module (so its weights load as `backbone.pixel_s1_0.*`). `with_da=False`
 (inference) skips the heads. Every tap kind of the JAX module is here:
@@ -32,6 +33,7 @@ from ...utils.registry import BACKBONES
 from ..da.heads import (GlobalAlignmentHead, ImageAlignmentHead,
                         PixelAlignmentHead, SRMHead)
 from .resnet import ResNet
+from .swin import SwinTransformer
 
 
 class Tap(NamedTuple):
@@ -59,10 +61,15 @@ def _halve(n: int) -> int:
 
 
 def stage_map_hw(canvas: Tuple[int, int], strides: Sequence[int],
-                 stage: int) -> Tuple[int, int]:
-    """The (h, w) of stage `stage`'s output for an image of `canvas`: the
-    stride-2 stem and max-pool, then each stage's stride up to it."""
+                 stage: int, trunk_type: str = 'resnet') -> Tuple[int, int]:
+    """The (h, w) of stage `stage`'s output for an image of `canvas`: on
+    the ResNet trunk the stride-2 stem and max-pool, then each stage's
+    stride up to it; on the Swin trunk the 'SAME' 4x4/4 patch embed, then
+    one cropping 2x2 merge a stage."""
     h, w = canvas
+    if trunk_type == 'swin':
+        h, w = -(-h // 4), -(-w // 4)
+        return h >> stage, w >> stage
     for _ in range(2 + sum(s == 2 for s in strides[:stage + 1])):
         h, w = _halve(h), _halve(w)
     return h, w
@@ -82,17 +89,17 @@ class DAResNet(nn.Module):
                  canvas: Tuple[int, int] = (512, 1024),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if trunk_type != 'resnet':
-            raise NotImplementedError(
-                f'trunk_type {trunk_type!r}: only the ResNet trunk is ported; '
-                'the Swin trunk (DeepAlign-Swin) comes with the rest of the '
-                'DA family, ROADMAP.md Queue 1')
         self.out_indices = tuple(out_indices)
         self.taps = tuple(taps)
-        self.trunk = ResNet(depth=depth, strides=tuple(strides),
-                            dilations=tuple(dilations),
-                            out_indices=self.out_indices,
-                            frozen_stages=frozen_stages, dtype=dtype)
+        if trunk_type == 'swin':
+            self.trunk = SwinTransformer(out_indices=self.out_indices,
+                                         frozen_stages=frozen_stages,
+                                         dtype=dtype)
+        else:
+            self.trunk = ResNet(depth=depth, strides=tuple(strides),
+                                dilations=tuple(dilations),
+                                out_indices=self.out_indices,
+                                frozen_stages=frozen_stages, dtype=dtype)
         channels = self.trunk.stage_channels()
         self.tap_names = tuple(f'{t.kind}_s{t.stage}_{i}'
                                for i, t in enumerate(self.taps))
@@ -102,7 +109,7 @@ class DAResNet(nn.Module):
                 map_hw = None
                 if tap.attention == 'mhsa':
                     map_hw = tuple(_halve(n) for n in stage_map_hw(
-                        canvas, strides, tap.stage))
+                        canvas, strides, tap.stage, trunk_type))
                 head = GlobalAlignmentHead(c, attention=tap.attention,
                                            map_hw=map_hw)
             elif tap.kind == 'srm':

@@ -7,6 +7,14 @@ roi_head=..., train_cfg=..., test_cfg=...)`) or flat module kwargs, and
 translates it as the JAX builder does. Unknown detector types raise, and so
 does any config that asks for a part not ported yet.
 
+The trunk: a nested `backbone` with a `trunk_type` (`type='DAResNet',
+trunk_type='swin'`, DeepAlign-Swin) or of type `SwinTransformer` sets
+`backbone_type` and the feature stride from its `out_stride` (default 32),
+which also becomes the anchor stride; another non-ResNet nested type, or a
+flat `backbone_cfg`, goes to the FPN families' `build_trunk`. A detector
+that takes neither (the plain DC5 `FasterRCNN`, CyDA) raises, where the
+JAX builder drops the key with a warning and builds its ResNet.
+
 Beside the nested parts, a nested config's `gen_blocks` (the CycleGAN
 generators' depth, `model.gen_blocks=2` on a CyDA config) reaches a
 detector that takes it; the JAX builder ignores it there. `canvas`, the static training canvas
@@ -73,16 +81,17 @@ def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Translate a reference-style nested model dict to module kwargs."""
     kwargs: Dict[str, Any] = {}
     backbone = cfg.get('backbone', {})
-    if backbone.get('type', 'ResNet') not in ('ResNet', 'DAResNet') \
-            or backbone.get('trunk_type', 'resnet') != 'resnet':
-        raise NotImplementedError(
-            f'backbone {backbone.get("type")!r}: only the ResNet trunk is '
-            'ported; the Swin trunk (DeepAlign-Swin) comes with the rest of '
-            'the DA family, ROADMAP.md Queue 1')
     if 'depth' in backbone:
         kwargs['backbone_depth'] = backbone['depth']
     if 'frozen_stages' in backbone:
         kwargs['frozen_stages'] = backbone['frozen_stages']
+    if backbone.get('trunk_type') or backbone.get('type') == 'SwinTransformer':
+        # as the JAX builder: any `trunk_type` (or a Swin type) sets the
+        # trunk and takes the feature stride from `out_stride` (default 32)
+        kwargs['backbone_type'] = backbone.get('trunk_type', 'swin')
+        kwargs['featmap_stride'] = backbone.get('out_stride', 32)
+    elif backbone.get('type', 'ResNet') not in ('ResNet', 'DAResNet'):
+        kwargs['backbone_cfg'] = backbone
 
     anch = cfg.get('rpn_head', {}).get('anchor_generator', {})
     if anch:
@@ -90,6 +99,9 @@ def _nested_to_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
             scales=tuple(anch.get('scales', (2, 4, 8, 16, 32))),
             ratios=tuple(anch.get('ratios', (0.5, 1.0, 2.0))),
             stride=(anch.get('strides', [16]))[0])
+        if kwargs.get('backbone_type') == 'swin':
+            kwargs['anchor_cfg'] = kwargs['anchor_cfg']._replace(
+                stride=kwargs['featmap_stride'])
 
     bbox_head = cfg.get('roi_head', {}).get('bbox_head', {})
     if 'num_classes' in bbox_head:
@@ -219,6 +231,12 @@ def build_detector(cfg: Dict[str, Any],
             kwargs['gen_blocks'] = cfg['gen_blocks']
     else:
         kwargs = _flat_kwargs(cls, cfg)
+    for key in ('backbone_type', 'backbone_cfg'):
+        if key in kwargs and key not in params:
+            raise NotImplementedError(
+                f'{det_type} with {key}={kwargs[key]!r}: this detector is '
+                'ported with its ResNet trunk only; the Swin trunk serves '
+                'the DA detectors and the FPN families')
     if canvas is not None and 'canvas' in params:
         kwargs['canvas'] = tuple(canvas)
     kwargs.update(extra, dtype=dtype)

@@ -36,7 +36,6 @@ from torch.profiler import record_function
 
 from ...utils.registry import DETECTORS
 from ..backbones.da_resnet import VARIANT_TAPS, DAResNet
-from ..backbones.resnet import ResNet
 from ..da.heads import InstanceAlignmentHead
 from ..da.losses import (consistency_loss, global_alignment_loss,
                          grouped_instance_loss, image_da_loss, patch_ls_loss)
@@ -62,12 +61,14 @@ class DAFasterRCNN(FasterRCNN):
                  group_k: int = 20,
                  loss_weights: DALossWeights = DALossWeights(),
                  quirk_detach: bool = False,
+                 backbone_type: str = 'resnet',
                  canvas: Tuple[int, int] = (512, 1024), **kwargs):
         if variant not in VARIANT_TAPS:
             raise ValueError(f'unknown DA variant {variant!r}')
         if instance_mode not in ('grouped', 'split_plain', 'plain', 'none'):
             raise ValueError(f'unknown instance_mode {instance_mode!r}')
         self.variant = variant
+        self.backbone_type = backbone_type
         self.canvas = tuple(canvas)
         super().__init__(**kwargs)
         self.instance_mode = instance_mode
@@ -81,11 +82,17 @@ class DAFasterRCNN(FasterRCNN):
             self.local_da = InstanceAlignmentHead(use_nonlocal=False)
 
     def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
+        # the Swin trunk is tapped at the stage of `featmap_stride` (stage 2
+        # at stride 16), the ResNet trunk at its dilated C5
+        out_indices = (max(0, self.featmap_stride.bit_length() - 3),) \
+            if self.backbone_type == 'swin' else (3,)
         return DAResNet(depth=depth, frozen_stages=frozen_stages,
-                        taps=VARIANT_TAPS[self.variant], canvas=self.canvas,
+                        taps=VARIANT_TAPS[self.variant],
+                        trunk_type=self.backbone_type,
+                        out_indices=out_indices, canvas=self.canvas,
                         dtype=self.dtype)
 
-    def _trunk(self) -> ResNet:
+    def _trunk(self) -> nn.Module:
         return self.backbone.trunk
 
     def extract_feat(self, image: torch.Tensor) -> torch.Tensor:

@@ -91,7 +91,8 @@ class FasterRCNN(nn.Module):
         self.roi_test_cfg = roi_test_cfg
         self.featmap_stride = featmap_stride
         self.backbone = self._build_backbone(backbone_depth, frozen_stages)
-        width = self._trunk().stage_channels()[-1]
+        # the tapped stage's width (C5 on the DC5 trunk, stage 2 on Swin)
+        width = self._trunk().stage_channels()[self.backbone.out_indices[0]]
         self.rpn_head = RPNHead(in_channels=width, feat_channels=2048,
                                 num_anchors=anchor_cfg.num_anchors,
                                 dtype=dtype)
@@ -103,7 +104,7 @@ class FasterRCNN(nn.Module):
                       dilations=(1, 1, 1, 2), out_indices=(3,),
                       frozen_stages=frozen_stages, dtype=self.dtype)
 
-    def _trunk(self) -> ResNet:
+    def _trunk(self) -> nn.Module:
         return self.backbone
 
     def extract_feat(self, image: torch.Tensor) -> torch.Tensor:

@@ -102,6 +102,10 @@ class MaskRCNNC4(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        if backbone_cfg is not None:
+            raise NotImplementedError(
+                f'MaskRCNNC4 with backbone_cfg {backbone_cfg!r}: only its '
+                'default ResNet trunk is ported')
         if roi_train_cfg.sampler_type != 'random':
             raise NotImplementedError(
                 f'sampler {roi_train_cfg.sampler_type!r}: only the random '

@@ -6,6 +6,8 @@
   semantics (the JAX heads use flax's module directly).
 - `InstanceNorm`: the CycleGAN's norm, `flax.linen.GroupNorm` with one
   channel a group (JAX `models/da/cyclegan.py:_inorm`).
+- `LayerNorm`: the Swin trunk's norm, `flax.linen.LayerNorm` over the last
+  dim.
 
 Parameter and buffer names (`scale`, `bias`, `mean`, `var`) are the flax
 ones, so converted weights and `batch_stats` load by name.
@@ -101,3 +103,33 @@ class InstanceNorm(nn.Module):
                           min=0.0)
         mul = torch.rsqrt(var + self.epsilon) * self.scale.view(shape)
         return ((xf - mean) * mul + self.bias.view(shape)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """`flax.linen.LayerNorm` over the last dim, the Swin trunk's norm:
+    the fast variance E[x²] − E[x]² clamped at 0, ε 1e-6 (torch's
+    `nn.LayerNorm` takes 1e-5 and the two-pass variance), y = (x − mean) ·
+    rsqrt(var + ε) · scale + bias with the statistics and the
+    normalisation in f32 at least, then cast to `dtype`, the compute type
+    (flax's `dtype`), whatever the input's. The means are sums times 1/n,
+    as XLA computes `mean`: on features with a large mean the fast
+    variance keeps the rounding of E[x]², and a division would round
+    otherwise."""
+
+    epsilon = 1e-6
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.features = features
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        inv_n = 1.0 / x.shape[-1]
+        mean = xf.sum(-1, keepdim=True) * inv_n
+        var = torch.clamp((xf * xf).sum(-1, keepdim=True) * inv_n
+                          - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)

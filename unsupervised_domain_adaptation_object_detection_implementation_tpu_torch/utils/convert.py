@@ -11,15 +11,19 @@
   (batch_stats) keep their names, for the trunk's frozen BN and the DA
   heads' live BN alike;
 - the CycleGAN's instance norms' `scale`/`bias` keep their names;
+- the Swin trunk's LayerNorm `scale`/`bias` keep their names;
 - raw parameters keep their names and layouts: the normed mask
-  predictor's `conv_logits_kernel` (C, K) and MHSA's relative position
-  terms `rel_h` (h, 1, c) and `rel_w` (1, w, c).
+  predictor's `conv_logits_kernel` (C, K), MHSA's relative position
+  terms `rel_h` (h, 1, c) and `rel_w` (1, w, c), and the Swin windows'
+  relative position bias table `rel_bias` ((2ws−1)², heads).
 
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
-`backbone.trunk.layer1.0.conv1.weight`. Leaves with no counterpart in the
+`backbone.trunk.layer1.0.conv1.weight` (and Swin's `stage0/block1`
+becomes `stage0.block1`). Leaves with no counterpart in the
 model are returned, not dropped silently; for every detector the port
-has (each DA variant, CyDA and CyCADA included) there are none.
+has (each DA variant, CyDA and CyCADA, the Swin trunk included) there
+are none.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], leaf: Any
             return f'{prefix}weight', value.transpose(3, 2, 0, 1)
         if name == 'kernel' and value.ndim == 2:
             return f'{prefix}weight', value.T
-        if name in ('bias', 'scale', 'conv_logits_kernel', 'rel_h', 'rel_w'):
+        if name in ('bias', 'scale', 'conv_logits_kernel', 'rel_h', 'rel_w',
+                    'rel_bias'):
             return prefix + name, value
     elif collection == 'batch_stats' and name in ('mean', 'var'):
         return prefix + name, value
