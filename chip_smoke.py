@@ -189,6 +189,27 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 20. swin reference — a tiny Swin Mask R-CNN (the tiny Mask R-CNN config
    with a Swin of embed 16, depths 2/2/2/2, AdamW): card vs CPU, inference
    and one AdamW step, launching the pair.
+21. coco mask — the COCO instance-segmentation data path: `tools.train`
+   (through its `main(argv)`) on configs/da/synth_mask_smoke.py (Mask
+   R-CNN R18-FPN, 56² box-frame rasters drawn from the polygons of a
+   `CocoDataset`, batch 8 of 128x192) redirected to 32 training and 8 test
+   images of the committed polygon split (tests/data/synth_seg), 2 epochs
+   of 4 steps with an evaluation and a checkpoint each, in build/coco_runs/;
+   every step launches the pair's forward 3 times and the backward twice,
+   every eval batch the forward twice; the mask loss is finite and the
+   val records carry the loop's AP50. A resume from ckpt_1 restores the
+   saved state bit for bit. A loader batch made on the card equals the one
+   made on the CPU, `gt_masks` included (the loader timed, and the host
+   polygon fill). Then configs/mask_rcnn/mask_rcnn_r50_fpn_1x.py at full
+   width (R50-FPN, 80 classes, 112² rasters, 1333x800 padded to 800x1344)
+   for one epoch of 2 steps of 2 images with an evaluation, and
+   `tools.test --eval bbox` on its checkpoint (the COCO-protocol keys).
+   On the RoIs each trained model samples from a loader batch, the pair
+   against the plain version and timed: the box features (o=7) and mask
+   features (o=14) on the R18 and the R50 pyramids, forward and backward,
+   and the mask targets (C=1, o=28, aligned=False) on the loader's 56² and
+   112² rasters (entries `roi_align_pyramid_{fwd,bwd}/coco_{synth,r50}_*`).
+   build/coco_runs/ is emptied once the phase's checks pass.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -221,6 +242,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.da
     DataLoader, build_dataset)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data.pipelines.jpeg import \
     decode_jpeg
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data.pipelines.polygon import \
+    rasterize_polygons
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.dense_heads.rpn_head import \
     rpn_proposals
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
@@ -239,6 +262,12 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.op
     cuda_build, roi_align)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
     DA_train
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
+    coco_mask_runs
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
+    test as test_cli
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
+    train as train_cli
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train import (
     demo_batch, ellipse_masks)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.utils import \
@@ -1777,6 +1806,29 @@ def _same_payload(got, ref, what):
                 raise RuntimeError(f'{what}: {key}.{n} differs')
 
 
+def _restored_state(resume):
+    """Call `resume()`, a run of the loop that resumes from a checkpoint,
+    with a spy on its `restore_train_state`. Returns (a copy of the train
+    state dict it restored, the restored `TrainState`)."""
+    out = []
+    original = train_api.restore_train_state
+
+    def spy(model, state, ckpt):
+        state = original(model, state, ckpt)
+        out.append(({k: v.clone() if torch.is_tensor(v) else
+                     ({n: t.clone() for n, t in v.items()}
+                      if isinstance(v, dict) else v)
+                     for k, v in ckpt_io.train_state_dict(
+                         model, state).items()}, state))
+        return state
+    train_api.restore_train_state = spy
+    try:
+        resume()
+    finally:
+        train_api.restore_train_state = original
+    return out[0]
+
+
 def _time_loader(cfg, card):
     """Decode ms an image (host) of the subset and of one 2048x1024 JPEG,
     then a loader epoch built on the card (no prefetch: each batch timed
@@ -1946,24 +1998,9 @@ def phase_loop(card, kernels):
 
     # resume: the restored state must be what the first call saved
     saved = ckpt_io.load_checkpoint(f'{LOOP_DIR}/ckpt_1', 'cuda')
-    restored = []
-    original = train_api.restore_train_state
-
-    def spy(model, state, ckpt):
-        state = original(model, state, ckpt)
-        restored.append({k: v.clone() if torch.is_tensor(v) else
-                         ({n: t.clone() for n, t in v.items()}
-                          if isinstance(v, dict) else v)
-                         for k, v in ckpt_io.train_state_dict(
-                             model, state).items()})
-        return state
-    train_api.restore_train_state = spy
-    try:
-        _run_cli(argv + ['--resume-from', f'{LOOP_DIR}/ckpt_1'], 4,
-                 eval_batches)
-    finally:
-        train_api.restore_train_state = original
-    _same_payload(restored[0], saved, 'resume')
+    restored, _ = _restored_state(lambda: _run_cli(
+        argv + ['--resume-from', f'{LOOP_DIR}/ckpt_1'], 4, eval_batches))
+    _same_payload(restored, saved, 'resume')
     log(f'loop: resumed from ckpt_1 at step {saved["step"]}: params, '
         'buffers, momentum, EMA and step equal to the saved ones, bit for '
         'bit; epoch 2 trained again')
@@ -2266,27 +2303,12 @@ def phase_gan_loop(card):
             n.startswith('disc_t.') for n in saved['momentum']):
         raise RuntimeError('gan loop: the checkpoint holds an EMA or no '
                            'discriminator momentum')
-    restored = []
-    original = train_api.restore_train_state
-
-    def spy(model, state, ckpt):
-        state = original(model, state, ckpt)
-        if not isinstance(state.opt_state, tuple) or \
-                len(state.opt_state) != 2:
-            raise RuntimeError('gan loop: resumed without two optimizers')
-        restored.append({k: v.clone() if torch.is_tensor(v) else
-                         ({n: t.clone() for n, t in v.items()}
-                          if isinstance(v, dict) else v)
-                         for k, v in ckpt_io.train_state_dict(
-                             model, state).items()})
-        return state
-    train_api.restore_train_state = spy
-    try:
-        _run_cli(argv + ['runner.max_epochs=2', '--resume-from',
-                         f'{LOOP_DIR}/ckpt_1'], 2, eval_batches)
-    finally:
-        train_api.restore_train_state = original
-    _same_payload(restored[0], saved, 'gan resume')
+    restored, state = _restored_state(lambda: _run_cli(
+        argv + ['runner.max_epochs=2', '--resume-from',
+                f'{LOOP_DIR}/ckpt_1'], 2, eval_batches))
+    if not isinstance(state.opt_state, tuple) or len(state.opt_state) != 2:
+        raise RuntimeError('gan loop: resumed without two optimizers')
+    _same_payload(restored, saved, 'gan resume')
     log(f'gan loop: DA_train CyDA (2 generator blocks) 1 epoch x 2 steps of '
         f'16 images 128x192 in {seconds:.2f} s with eval and a checkpoint; '
         f'launches fwd {fwd} bwd {bwd}; resumed from ckpt_1 at step '
@@ -2891,24 +2913,9 @@ def phase_swin_loop(card):
             not any(n.startswith('backbone.trunk.stage') for n in saved['nu']):
         raise RuntimeError('swin loop: the checkpoint lacks the Adam '
                            'moments or the EMA')
-    restored = []
-    original = train_api.restore_train_state
-
-    def spy(model, state, ckpt):
-        state = original(model, state, ckpt)
-        restored.append({k: v.clone() if torch.is_tensor(v) else
-                         ({n: t.clone() for n, t in v.items()}
-                          if isinstance(v, dict) else v)
-                         for k, v in ckpt_io.train_state_dict(
-                             model, state).items()})
-        return state
-    train_api.restore_train_state = spy
-    try:
-        _run_cli(argv + ['--resume-from', f'{LOOP_DIR}/ckpt_1'], 4,
-                 eval_batches)
-    finally:
-        train_api.restore_train_state = original
-    _same_payload(restored[0], saved, 'swin resume')
+    restored, _ = _restored_state(lambda: _run_cli(
+        argv + ['--resume-from', f'{LOOP_DIR}/ckpt_1'], 4, eval_batches))
+    _same_payload(restored, saved, 'swin resume')
     log(f'swin loop: DA_train DeepAlign-Swin (Swin-T, AdamW, clip 35, EMA '
         f'0.999) 2 epochs x 4 steps of 8 images 128x192 in {seconds:.2f} s '
         f'with 2 evals and 2 checkpoints; launches fwd {fwd} bwd {bwd}; '
@@ -2941,6 +2948,250 @@ def phase_swin_reference():
                            'times, expected (7, 2)')
 
 
+# ---- the COCO instance-segmentation data path ------------------------------
+
+COCO_DIR = 'build/coco_runs'
+COCO_R50 = 'configs/mask_rcnn/mask_rcnn_r50_fpn_1x.py'
+# a step launches the forward for the box and mask features and the mask
+# targets, the backward for both features; an eval batch the forward for
+# the box and the mask features
+COCO_STEP_LAUNCHES = (3, 2)
+COCO_EVAL_LAUNCHES = 2
+
+
+def _seg_options(key, ann):
+    """--cfg-options pointing dataset `key` at `ann`, a json of the
+    committed polygon split."""
+    return [f'{k}={v}' for k, v in
+            coco_mask_runs.split_options({key: ann}).items()]
+
+
+def _coco_train(argv, steps, eval_batches, label):
+    """`tools.train`'s `main(argv)` under a `coco_mask_runs.StepTimer`,
+    the launch counters set to 0 just before; raises unless every step and
+    eval batch launched the pair as `COCO_STEP_LAUNCHES` and
+    `COCO_EVAL_LAUNCHES` say and every loss is finite. Returns (timer,
+    forward launches, backward launches, seconds)."""
+    FWD.launches = BWD.launches = 0
+    with coco_mask_runs.StepTimer('cuda') as timer:
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    fwd, bwd = FWD.launches, BWD.launches
+    want = (COCO_STEP_LAUNCHES[0] * steps + COCO_EVAL_LAUNCHES * eval_batches,
+            COCO_STEP_LAUNCHES[1] * steps)
+    if (fwd, bwd) != want or len(timer.step_ms) != steps:
+        raise RuntimeError(f'{label}: {len(timer.step_ms)} steps launched '
+                           f'the pair {fwd} / {bwd} times, expected {want}')
+    if not all(math.isfinite(v) for m in timer.metrics for v in m.values()):
+        raise RuntimeError(f'{label}: losses {timer.metrics}')
+    return timer, fwd, bwd, seconds
+
+
+def _coco_pair(tag, model, batch, mask_size):
+    """The pair against the plain version, and timed, on the RoIs a train
+    step of `model` samples from the loader `batch`: box features (o=7,
+    flat) and mask features (o=14) forward and backward on the model's
+    pyramid, and the mask targets on the batch's box-frame rasters.
+    Returns the five entries `roi_align_pyramid_{fwd,bwd}/coco_<tag>_*`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pyramid, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    levels = roi_align.roi_levels(rois, 4)
+    sizes = [tuple(p.shape[1:3]) for p in pyramid]
+    shapes = [tuple(p.shape) for p in pyramid]
+    c = shapes[0][3]
+    counts = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    log(f'coco {tag}: {tuple(rois.shape[:2])} sampled RoIs on the loader '
+        f'batch, per level P2..P5 {counts}, pyramid {sizes} C={c}')
+    entries = []
+    for part, out_size, flatten in (('box', 7, True), ('mask', 14, False)):
+        fwd_name = f'roi_align_pyramid_fwd/coco_{tag}_{part}'
+        bwd_name = f'roi_align_pyramid_bwd/coco_{tag}_{part}'
+
+        def plain(fs, rs, o=out_size, f=flatten):
+            return roi_align.batched_roi_align_fpn_plain(
+                fs, rs, out_size=o, flatten=f)
+        got = fpn_fwd(pyramid, rois, levels, flatten, out_size)
+        worst = _check(fwd_name, got, plain(pyramid, rois), TOL_F32,
+                       f'o={out_size} on sampled RoIs')
+        ms = time_ms(lambda: fpn_fwd(pyramid, rois, levels, flatten,
+                                     out_size), 20)
+        plain_ms = time_ms(lambda: plain(pyramid, rois), 3, warmup=1)
+        nbytes, ops = roi_align_fpn_work(rois, levels, sizes, c, out_size)
+        entry = _entry(fwd_name, 944, nbytes, ops, max_abs_err=worst, ms=ms,
+                       plain_ms=plain_ms)
+        log(f'kernels: {fwd_name} f32 o={out_size}: {ms:.4f} ms, plain '
+            f'{plain_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
+            f'({entry["bound_by"]}: {nbytes / 1e6:.2f} MB, '
+            f'{ops / 1e9:.3f} GFLOP)')
+        entries.append(entry)
+        grad = torch.randn(got.shape, generator=gen, device='cuda')
+        got = fpn_bwd(grad, rois, levels, shapes, flatten, out_size)
+        worst = max(_check(bwd_name, gg, rr, TOL_F32,
+                           f'o={out_size} on sampled RoIs P{lvl + 2}')
+                    for lvl, (gg, rr) in enumerate(zip(
+                        got, _plain_grads(plain, pyramid, rois, grad))))
+        entries.append(time_fpn_backward(bwd_name, pyramid, rois, grad,
+                                         worst, out_size, flatten, 889))
+    name = f'roi_align_pyramid_fwd/coco_{tag}_targets'
+    rasters, frame = box_frame_crops(batch['gt_masks'], batch['gt_bboxes'],
+                                     rois, sampled.matched_gt)
+    pos = (sampled.is_pos & sampled.label_valid).flatten()
+    worst = _check(name, targets_fwd(rasters, frame),
+                   targets_plain(rasters, frame), TOL_F32,
+                   f'o=28 on {frame.shape[0]} box-frame RoIs ({int(pos.sum())}'
+                   f' positive) of the loader\'s {mask_size}² rasters')
+    ms = time_ms(lambda: targets_fwd(rasters, frame), 20)
+    plain_ms = time_ms(lambda: targets_plain(rasters, frame), 3, warmup=1)
+    nbytes, ops = roi_align_work(frame, mask_size, mask_size, 1, 28,
+                                 scale=1.0, aligned=False)
+    entry = _entry(name, 237, nbytes, ops, max_abs_err=worst, ms=ms,
+                   plain_ms=plain_ms)
+    log(f'kernels: {name} f32 {frame.shape[0]} rasters {mask_size}x'
+        f'{mask_size}x1 o=28: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}: '
+        f'{nbytes / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP)')
+    entries.append(entry)
+    return entries
+
+
+def _coco_loader(cfg, card):
+    """The synth config's loader on the card against the same on the CPU,
+    batch for batch and exactly (`gt_masks` included), the card's timed;
+    and the host polygon fill of those images' instances. Returns the
+    card's first batch."""
+    loaders = [DataLoader(build_dataset(cfg.data['train'], d), 8, seed=0,
+                          prefetch=0) for d in ('cuda', 'cpu')]
+    made, times = iter(loaders[0]), []
+    batches = []
+    for _ in range(len(loaders[0])):
+        t0 = time.perf_counter()
+        batches.append(next(made))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    for got, ref in zip(batches, loaders[1]):
+        if set(got) != set(ref) or 'gt_masks' not in ref:
+            raise RuntimeError(f'coco loader keys {sorted(got)}')
+        for k, v in ref.items():
+            if got[k].device.type != 'cuda' or not torch.equal(got[k].cpu(),
+                                                               v):
+                raise RuntimeError(f'coco loader: {k} on the card differs '
+                                   'from the CPU')
+    ds = loaders[1].dataset
+    t0, n = time.perf_counter(), 0
+    for i in range(len(ds)):
+        ann = ds.get_ann_info(i)
+        for poly, box in zip(ann['masks'], ann['bboxes']):
+            rasterize_polygons(poly, box, 56)
+            n += 1
+    fill_ms = 1e3 * (time.perf_counter() - t0)
+    log(f'coco loader: batches of 8 with 56² rasters on the card '
+        f'{[round(t, 2) for t in times]} ms, mean {np.mean(times):.3f} ms '
+        f'a batch; {len(batches)} batches equal to the CPU-built ones '
+        f'(image, boxes, labels, validity, flips, gt_masks); the host '
+        f'polygon fill {fill_ms / len(ds):.3f} ms an image ({n} instances '
+        f'of {len(ds)} images) [{card}]')
+    return batches[0]
+
+
+def phase_coco_mask(card, kernels):
+    """Mask R-CNN from its COCO configs: the synth config through
+    `tools.train` with a bit-exact resume, a loader batch card vs CPU, the
+    full-width R50-FPN config for 2 steps and `tools.test --eval bbox`,
+    and the pair on each trained model's loader RoIs."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(COCO_DIR, ignore_errors=True)
+    os.makedirs(COCO_DIR)
+    write = coco_mask_runs.write_subset
+    train32 = write('train', 32, f'{COCO_DIR}/train32.json')
+    test8 = write('test', 8, f'{COCO_DIR}/test8.json')
+    options = [*_seg_options('data.train', train32),
+               *_seg_options('data.val', test8),
+               *_seg_options('data.test', test8), 'runner.max_epochs=2',
+               'evaluation.interval=1', 'checkpoint_config.interval=1']
+    work = f'{COCO_DIR}/synth'
+    argv = [MASK_TINY, '--work-dir', work, '--cfg-options', *options]
+    timer, fwd, bwd, seconds = _coco_train(argv, 8, 2, 'coco synth')
+    with open(f'{work}/train_log.jsonl') as f:
+        recs = [json.loads(line) for line in f]
+    val = [r for r in recs if r['mode'] == 'val']
+    train = [r for r in recs if r['mode'] == 'train']
+    if [r['epoch'] for r in val] != [1, 2] or \
+            [r['epoch'] for r in train] != [1, 2] or \
+            not all(math.isfinite(r['loss_mask']) for r in train) or \
+            not all(0.0 <= r['AP50'] <= 1.0 for r in val):
+        raise RuntimeError(f'coco synth: records {recs}')
+    log(f'coco synth: tools.train Mask R-CNN R18-FPN (56² rasters from '
+        f'polygons) 2 epochs x 4 steps of 8 images 128x192 in {seconds:.2f} '
+        f's with 2 evals on 8 images and 2 checkpoints; launches fwd {fwd} '
+        f'bwd {bwd}; step ms {[round(t, 2) for t in timer.step_ms]} median '
+        f'{np.median(timer.step_ms):.3f}, loader wait median '
+        f'{np.median(timer.wait_ms):.3f} ms; records {recs} [{card}]')
+
+    saved = ckpt_io.load_checkpoint(f'{work}/ckpt_1', 'cuda')
+    restored, _ = _restored_state(lambda: _coco_train(
+        argv + ['--resume-from', f'{work}/ckpt_1'], 4, 1,
+        'coco synth resume'))
+    _same_payload(restored, saved, 'coco synth resume')
+    log(f'coco synth: resumed from ckpt_1 at step {saved["step"]}: params, '
+        'buffers, momentum, EMA and step equal to the saved ones, bit for '
+        'bit; epoch 2 trained again')
+
+    cfg = train_cli.load_config(train_cli.parse_args(argv))
+    batch = _coco_loader(cfg, card)
+    model = init_detector(cfg, device='cuda',
+                          checkpoint=f'{work}/ckpt_2').model
+    synth = _coco_pair('synth', model, batch, 56)
+    for e in synth:
+        e['launches'] = fwd if '_fwd/' in e['name'] else bwd
+    kernels += synth
+    del model, batch, saved, restored
+    _free()
+
+    # the full-width R50-FPN COCO config: 2 steps, an eval, tools.test
+    train4 = write('train', 4, f'{COCO_DIR}/train4.json')
+    test4 = write('test', 4, f'{COCO_DIR}/test4.json')
+    work = f'{COCO_DIR}/r50'
+    test_options = _seg_options('data.test', test4)
+    argv = [COCO_R50, '--work-dir', work, '--cfg-options',
+            *_seg_options('data.train', train4),
+            *_seg_options('data.val', test4),
+            *test_options, 'runner.max_epochs=1', 'evaluation.interval=1',
+            'checkpoint_config.interval=1']
+    torch.cuda.reset_peak_memory_stats()
+    timer, fwd, bwd, seconds = _coco_train(argv, 2, 2, 'coco r50')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    bbox = test_cli.main([COCO_R50, f'{work}/ckpt_1', '--eval', 'bbox',
+                          '--cfg-options', *test_options])
+    test_s = time.perf_counter() - t0
+    if set(bbox) != {'bbox_mAP', 'bbox_mAP_50', 'bbox_mAP_75', 'bbox_mAP_s',
+                     'bbox_mAP_m', 'bbox_mAP_l'} or \
+            not all(0.0 <= v <= 1.0 for v in bbox.values()):
+        raise RuntimeError(f'coco r50: tools.test --eval bbox gave {bbox}')
+    log(f'coco r50: tools.train {COCO_R50} (R50-FPN, 80 classes, 112² '
+        f'rasters, 800x1344) 1 epoch of 2 steps of 2 images in '
+        f'{seconds:.2f} s with an eval of 4 images ({timer.eval_s[0]:.2f} s) '
+        f'and a checkpoint; step ms {[round(t, 2) for t in timer.step_ms]}; '
+        f'losses {timer.metrics}; peak {peak:.2f} GiB; launches fwd {fwd} '
+        f'bwd {bwd}; tools.test --eval bbox on ckpt_1 in {test_s:.2f} s: '
+        f'{bbox} [{card}]')
+    cfg = train_cli.load_config(train_cli.parse_args(argv))
+    batch = next(iter(DataLoader(build_dataset(cfg.data['train'], 'cuda'), 2,
+                                 seed=0, prefetch=0)))
+    model = init_detector(cfg, device='cuda', checkpoint=f'{work}/ckpt_1').model
+    r50 = _coco_pair('r50', model, batch, 112)
+    for e in r50:
+        e['launches'] = fwd if '_fwd/' in e['name'] else bwd
+    kernels += r50
+    del model, batch
+    _free()
+    shutil.rmtree(COCO_DIR)
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -2967,6 +3218,7 @@ def main():
     phase_swin(card, kernels)
     phase_swin_loop(card)
     phase_swin_reference()
+    phase_coco_mask(card, kernels)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -219,8 +219,20 @@ def test_multiscaleflipaug_and_masks_raise_as_jax():
             jtf.MultiScaleFlipAug(inner, **kw)
         with pytest.raises(NotImplementedError):
             ttf.MultiScaleFlipAug(inner, **kw)
-    with pytest.raises(NotImplementedError, match='mask'):
-        ttf.LoadAnnotations(with_mask=True)
+    # mask annotations load as the JAX package loads them (each instance's
+    # polygons rasterized in its box's frame; tests/test_torch_coco_masks.py
+    # holds the rasterizer to Pillow)
+    ann = dict(bboxes=np.array([[2, 3, 30, 20], [5, 5, 9, 9], [0, 0, 4, 4]],
+                               np.float32),
+               labels=np.array([0, 1, 1]),
+               masks=[[[2, 3, 30, 3, 16, 20]], [], [[1, 1, 2, 2]]])
+    got = ttf.LoadAnnotations(with_mask=True, mask_size=28)(
+        dict(ann_info=ann))['gt_masks']
+    ref = jtf.LoadAnnotations(with_mask=True, mask_size=28)(
+        dict(ann_info=ann))['gt_masks']
+    assert got.shape == (3, 28, 28) and got.dtype == np.uint8
+    assert got[0].any() and not got[1:].any()
+    assert np.array_equal(got, ref)
 
 
 @pytest.mark.parametrize('src,tgt,batch,steps', [(4, 3, 2, None),

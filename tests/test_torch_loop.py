@@ -103,7 +103,8 @@ def run(tmp_path_factory):
         trainer = orig_init(*a, **k)
 
         def step(state, batch, generator=None, **kw):
-            draws.append((state.step, generator.get_state().clone()))
+            draws.append((state.step, generator.get_state().clone(),
+                          torch.get_rng_state()))
             return trainer.step(state, batch, generator, **kw)
         return trainer._replace(step=step)
 
@@ -231,11 +232,26 @@ def test_resumed_steps_draw_what_the_uninterrupted_run_drew(run):
     generator state that the same step of the uninterrupted run got, and
     no two steps share one."""
     first, resumed = run['draws'][:6], run['draws'][6:]
-    assert [s for s, _ in first] == list(range(6))
-    assert [s for s, _ in resumed] == [3, 4, 5]
-    for s, state in resumed:
+    assert [s for s, *_ in first] == list(range(6))
+    assert [s for s, *_ in resumed] == [3, 4, 5]
+    for s, state, _ in resumed:
         assert torch.equal(state, first[s][1]), s
     assert all(not torch.equal(first[i][1], first[j][1])
+               for i in range(6) for j in range(i))
+
+
+def test_dropout_draws_follow_the_seed_and_the_step(run):
+    """Dropout draws from torch's default generator, which torch seeds
+    anew in each process; the loop seeds it at every step from the seed and
+    the step, so every process, and a resumed run, draws the same masks (a
+    run's detections would otherwise change from process to process)."""
+    first, resumed = run['draws'][:6], run['draws'][6:]
+    for s, _, state in first:
+        torch.manual_seed(ttrain._dropout_seed(0, s))
+        assert torch.equal(state, torch.get_rng_state()), s
+    for s, _, state in resumed:
+        assert torch.equal(state, first[s][2]), s
+    assert all(not torch.equal(first[i][2], first[j][2])
                for i in range(6) for j in range(i))
 
 
@@ -380,3 +396,4 @@ def test_refused_options_raise(tmp_path, kwargs, cfg_over, match):
         ttrain.train_detector(cfg, str(tmp_path / 'wd'), device='cpu',
                               **kwargs)
     assert not (tmp_path / 'wd').exists()
+

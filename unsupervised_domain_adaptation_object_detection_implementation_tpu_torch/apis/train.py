@@ -256,6 +256,14 @@ def _sampler_seed(seed: int, step: int) -> int:
     return ((seed + 1) << 32) + step
 
 
+def _dropout_seed(seed: int, step: int) -> int:
+    """The seed of torch's default generators, which dropout draws from, at
+    `step`: a function of `seed` and the step alone, so that a run, and a
+    resumed one, draw the same masks in every process (the JAX loop splits
+    its dropout key from the step's key)."""
+    return (seed << 32) + step
+
+
 def train_detector(cfg: Config, work_dir: str,
                    resume_from: Optional[str] = None,
                    load_from: Optional[str] = None,
@@ -286,9 +294,11 @@ def train_detector(cfg: Config, work_dir: str,
     torchvision ResNet), is loaded before either, and the EMA restarts
     from it. The
     samplers draw from a `torch.Generator` on `device` seeded at every step
-    from `seed + 1` and the step (`_sampler_seed`), so a resumed run draws
-    what an uninterrupted one does; the loader's sampler and the datasets
-    draw from `seed`.
+    from `seed + 1` and the step (`_sampler_seed`), and dropout from torch's
+    default generators, seeded at every step from `seed` and the step
+    (`_dropout_seed`), so a resumed run draws what an uninterrupted one
+    does in any process; the loader's sampler and the datasets draw from
+    `seed`.
 
     Multi-device training and submodule grafting raise
     NotImplementedError."""
@@ -375,6 +385,7 @@ def train_detector(cfg: Config, work_dir: str,
             t_epoch = time.time()
             for it, batch in enumerate(loader):
                 gen.manual_seed(_sampler_seed(seed, state.step))
+                torch.manual_seed(_dropout_seed(seed, state.step))
                 state, metrics = trainer.step(state, batch, gen)
                 g_it = epoch * steps_per_epoch + it + 1
                 if (it + 1) % log_interval == 0 or it + 1 == steps_per_epoch:

@@ -44,6 +44,9 @@ class CustomDataset:
         self.filter_empty_gt = filter_empty_gt
         self.domain = {'source': 0, 'target': 1, None: 0}[domain]
         self.device = resolve_device(device)
+        # an explicit `classes=` is the class table (a COCO json's
+        # annotations are filtered to it)
+        self.custom_classes = classes is not None
         if classes is not None:
             self.CLASSES = tuple(classes)
         self.cat2label = {c: i for i, c in enumerate(self.CLASSES)}

@@ -1,5 +1,6 @@
-"""Dataset wrappers (counterpart of `ConcatDataset` in the JAX package's
-`data/datasets/wrappers.py`; its other wrappers are not ported)."""
+"""Dataset wrappers (counterpart of `ConcatDataset` and `RepeatDataset` in
+the JAX package's `data/datasets/wrappers.py`; `ClassBalancedDataset` and
+`MultiImageMixDataset` are not ported)."""
 
 from __future__ import annotations
 
@@ -44,3 +45,27 @@ class ConcatDataset:
     def get_ann_info(self, idx: int):
         ds_idx, local = self._locate(idx)
         return self.datasets[ds_idx].get_ann_info(local)
+
+
+@DATASETS.register_module()
+class RepeatDataset:
+    """A dataset `times` over end to end: an epoch of the `mstrain-poly_3x`
+    configs. A sub-dataset config is built on `device` (CUDA unless the
+    caller asks for the CPU)."""
+
+    def __init__(self, dataset, times: int,
+                 device: Union[str, torch.device] = 'cuda'):
+        from ..builder import build_dataset
+        self.dataset = dataset if not isinstance(dataset, dict) else \
+            build_dataset(dataset, device)
+        self.times = times
+        self.CLASSES = self.dataset.CLASSES
+
+    def __len__(self):
+        return self.times * len(self.dataset)
+
+    def __getitem__(self, idx: int):
+        return self.dataset[idx % len(self.dataset)]
+
+    def get_ann_info(self, idx: int):
+        return self.dataset.get_ann_info(idx % len(self.dataset))

@@ -1,8 +1,11 @@
+from .auto_augment import AutoAugment
 from .jpeg import decode_jpeg
+from .polygon import fill_polygon, rasterize_polygons
 from .transforms import (Compose, LoadAnnotations, LoadImageFromFile,
                          MultiScaleFlipAug, Normalize, PackDetInputs, Pad,
-                         RandomFlip, Resize, imresize)
+                         RandomCrop, RandomFlip, Resize, imresize)
 
-__all__ = ['Compose', 'LoadAnnotations', 'LoadImageFromFile',
+__all__ = ['AutoAugment', 'Compose', 'LoadAnnotations', 'LoadImageFromFile',
            'MultiScaleFlipAug', 'Normalize', 'PackDetInputs', 'Pad',
-           'RandomFlip', 'Resize', 'decode_jpeg', 'imresize']
+           'RandomCrop', 'RandomFlip', 'Resize', 'decode_jpeg',
+           'fill_polygon', 'imresize', 'rasterize_polygons']

@@ -1,16 +1,16 @@
 """Data pipeline (counterpart of the JAX package's
-`data/pipelines/transforms.py`: `LoadImageFromFile`, `LoadAnnotations`,
-keep-ratio and multi-scale `Resize`, `RandomFlip`,
-`PhotoMetricDistortion`, `Normalize`, `Pad`, `PackDetInputs`,
-`MultiScaleFlipAug`, `Compose`).
+`data/pipelines/transforms.py`: `LoadImageFromFile`, `LoadAnnotations`
+with box-frame mask rasters, keep-ratio and multi-scale `Resize`,
+`RandomFlip`, `RandomCrop`, `PhotoMetricDistortion`, `Normalize`, `Pad`,
+`PackDetInputs`, `MultiScaleFlipAug`, `Compose`).
 
 Each transform is a callable on a `results` dict whose `img` is an (H, W, 3)
 RGB torch tensor — uint8 until `Normalize`, float32 after — on the device
 named by `results['device']` (the dataset's): the image is decoded on the
 host (`jpeg.decode_jpeg`, no PIL or cv2), then moved to that device, where
-every later step runs. Meta entries (`img_shape`, `scale_factor`, gt blocks) are
-small numpy arrays, as in the JAX package. Random draws (scale, flip,
-photometric jitter) come
+every later step runs. Meta entries (`img_shape`, `scale_factor`, gt blocks and
+the (n, M, M) uint8 mask rasters) are numpy arrays on the host, as in the
+JAX package. Random draws (scale, flip, crop, photometric jitter) come
 from `results['_rng']`, the dataset's `np.random.RandomState`, in the JAX
 package's order.
 """
@@ -26,6 +26,7 @@ import torch
 
 from ...utils.registry import PIPELINES
 from .jpeg import decode_jpeg
+from .polygon import rasterize_polygons
 
 
 def _resize_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -112,16 +113,18 @@ class LoadImageFromFile:
 @PIPELINES.register_module()
 class LoadAnnotations:
     """The image's boxes (n, 4) float32 and labels (n,) int64 from
-    `results['ann_info']`, and its ignored boxes where it has them. Masks
-    are not ported: `with_mask=True` raises."""
+    `results['ann_info']`, and its ignored boxes where it has them.
+    `with_mask=True` adds `gt_masks` (n, mask_size, mask_size) uint8: each
+    instance's polygons drawn into its box's frame on the host
+    (`polygon.rasterize_polygons`, Pillow's fill without PIL); an instance
+    without polygons gets a zero raster."""
 
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
                  with_mask: bool = False, mask_size: int = 112):
-        if with_mask:
-            raise NotImplementedError('LoadAnnotations(with_mask=True): '
-                                      'mask annotations are not ported yet')
         self.with_bbox = with_bbox
         self.with_label = with_label
+        self.with_mask = with_mask
+        self.mask_size = mask_size
 
     def __call__(self, results):
         ann = results['ann_info']
@@ -133,6 +136,15 @@ class LoadAnnotations:
                     ann['bboxes_ignore'].astype(np.float32).reshape(-1, 4)
         if self.with_label:
             results['gt_labels'] = ann['labels'].astype(np.int64).reshape(-1)
+        if self.with_mask:
+            polys = ann.get('masks', [])
+            boxes = results['gt_bboxes']
+            m = self.mask_size
+            rasters = np.zeros((len(boxes), m, m), np.uint8)
+            for i, box in enumerate(boxes):
+                if i < len(polys) and polys[i]:
+                    rasters[i] = rasterize_polygons(polys[i], box, m)
+            results['gt_masks'] = rasters
         return results
 
 
@@ -197,7 +209,8 @@ class Resize:
 @PIPELINES.register_module()
 class RandomFlip:
     """Horizontal flip with probability `flip_ratio` (one `rng.rand()` per
-    image); a flipped box spans [w - x2, w - x1] of the resized width w."""
+    image); a flipped box spans [w - x2, w - x1] of the resized width w,
+    and its box-frame mask raster flips left to right with it."""
 
     def __init__(self, flip_ratio: float = 0.5):
         self.flip_ratio = flip_ratio
@@ -214,6 +227,61 @@ class RandomFlip:
                 boxes[:, 0] = w - results['gt_bboxes'][:, 2]
                 boxes[:, 2] = w - results['gt_bboxes'][:, 0]
                 results['gt_bboxes'] = boxes
+            if 'gt_masks' in results:
+                results['gt_masks'] = results['gt_masks'][:, :, ::-1]
+        return results
+
+
+@PIPELINES.register_module()
+class RandomCrop:
+    """A random window of the image: `crop_size` (h, w) for 'absolute', or
+    each side drawn from [crop_size[0], crop_size[1]] for
+    'absolute_range' (`rng.randint`, h then w), each capped by the image;
+    then the window's corner (y then x). The crop is a view of the image
+    on its device. Boxes shift into the window and are clipped to it;
+    boxes left empty are dropped with their labels and mask rasters (a
+    raster lives in its box's frame and rides along unchanged, as in the
+    JAX package). When no box survives and `allow_negative_crop` is False
+    the image is left uncropped; with it, the image may keep no box."""
+
+    def __init__(self, crop_size, crop_type: str = 'absolute',
+                 allow_negative_crop: bool = False):
+        if crop_type not in ('absolute', 'absolute_range'):
+            raise NotImplementedError(
+                f'RandomCrop(crop_type={crop_type!r}): only \'absolute\' and '
+                f'\'absolute_range\' are ported, as in the JAX package')
+        self.crop_size = crop_size
+        self.crop_type = crop_type
+        self.allow_negative_crop = allow_negative_crop
+
+    def __call__(self, results):
+        rng = results.get('_rng', np.random)
+        img = results['img']
+        h, w = img.shape[:2]
+        if self.crop_type == 'absolute_range':
+            lo, hi = self.crop_size
+            ch = min(rng.randint(lo, hi + 1), h)
+            cw = min(rng.randint(lo, hi + 1), w)
+        else:
+            ch, cw = min(self.crop_size[0], h), min(self.crop_size[1], w)
+        y0 = rng.randint(0, h - ch + 1)
+        x0 = rng.randint(0, w - cw + 1)
+        results['img'] = img[y0:y0 + ch, x0:x0 + cw]
+        results['img_shape'] = (ch, cw)
+        if 'gt_bboxes' in results:
+            boxes = results['gt_bboxes'] - np.array([x0, y0, x0, y0],
+                                                    np.float32)
+            boxes[:, 0::2] = boxes[:, 0::2].clip(0, cw)
+            boxes[:, 1::2] = boxes[:, 1::2].clip(0, ch)
+            keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
+            if not keep.any() and not self.allow_negative_crop:
+                results['img'] = img
+                results['img_shape'] = (h, w)
+                return results
+            results['gt_bboxes'] = boxes[keep]
+            results['gt_labels'] = results['gt_labels'][keep]
+            if 'gt_masks' in results:
+                results['gt_masks'] = results['gt_masks'][keep]
         return results
 
 
@@ -308,9 +376,19 @@ class PackDetInputs:
     """Terminal stage: the image plus fixed-size meta and gt blocks
     (gts padded to `max_gt` with a validity mask). `with_mask` adds
     `gt_masks` (max_gt, M, M) uint8, each gt's box-frame raster (M from
-    the results' `gt_masks`, 112 without any), zero-padded."""
+    the results' `gt_masks`, 112 without any), zero-padded. The full-image
+    rasters and semantic maps of the JAX package (`with_full_masks`,
+    `with_semantic`, for SOLO and panoptic heads) are not ported and
+    raise."""
 
-    def __init__(self, max_gt: int = 100, with_mask: bool = False):
+    def __init__(self, max_gt: int = 100, with_mask: bool = False,
+                 with_full_masks: bool = False, full_mask_stride: int = 4,
+                 with_semantic: bool = False, num_stuff: int = 1):
+        if with_full_masks or with_semantic:
+            raise NotImplementedError(
+                'PackDetInputs(with_full_masks / with_semantic): full-image '
+                'rasters and semantic maps feed the SOLO and panoptic heads, '
+                'which are not ported')
         self.max_gt = max_gt
         self.with_mask = with_mask
 

@@ -20,7 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from ...utils.registry import DETECTORS
-from ..roi_heads.mask_head import (FCNMaskHead, mask_loss,
+from ..roi_heads.mask_head import (FCNMaskHead, batch_gt_masks, mask_loss,
                                    mask_targets_from_box_frame)
 from .faster_rcnn_fpn import FasterRCNNFPN
 
@@ -63,6 +63,7 @@ class MaskRCNN(FasterRCNNFPN):
              ) -> Dict[str, torch.Tensor]:
         """The RPN and box losses of `FasterRCNNFPN`, then the mask loss on
         the same sampled RoIs; each stage a `step/...` range."""
+        gt_masks = batch_gt_masks(batch)
         losses, sampled, maps = self._det_losses(batch, generator,
                                                  sampler_priorities)
         with record_function('step/mask_roi_align_fwd'):
@@ -71,7 +72,7 @@ class MaskRCNN(FasterRCNNFPN):
                                      flatten=False)
         with record_function('step/mask_targets'):
             targets = mask_targets_from_box_frame(
-                batch['gt_masks'], batch['gt_bboxes'], sampled.rois,
+                gt_masks, batch['gt_bboxes'], sampled.rois,
                 sampled.matched_gt, self.mask_size)
         with record_function('step/mask_head_and_loss'):
             pos_w = (sampled.is_pos & sampled.label_valid).float()

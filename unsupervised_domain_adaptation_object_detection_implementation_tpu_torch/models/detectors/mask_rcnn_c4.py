@@ -24,7 +24,7 @@ from ..backbones.resnet import ARCH_SETTINGS
 from ..dense_heads.rpn_head import (ProposalConfig, RPNHead, RPNTrainConfig,
                                     rpn_loss, rpn_proposals)
 from ..layers.precision import Linear
-from ..roi_heads.mask_head import (FCNMaskHead, mask_loss,
+from ..roi_heads.mask_head import (FCNMaskHead, batch_gt_masks, mask_loss,
                                    mask_targets_from_box_frame)
 from ..roi_heads.standard_roi_head import (RoITestConfig, RoITrainConfig,
                                            bbox_loss, extract_roi_feats,
@@ -175,6 +175,7 @@ class MaskRCNNC4(nn.Module):
         """RPN, box and (with `with_mask`) mask losses; the mask branch on
         all sampled RoIs, positives weighted, from the res5 output the box
         head reads. Each stage is a `step/...` profiler range."""
+        gt_masks = batch_gt_masks(batch) if self.with_mask else None
         pri = sampler_priorities or {}
         with record_function('step/trunk'):
             feat = self.extract_feat(batch['image'].float())
@@ -207,7 +208,7 @@ class MaskRCNNC4(nn.Module):
         if self.with_mask:
             with record_function('step/mask_targets'):
                 targets = mask_targets_from_box_frame(
-                    batch['gt_masks'], batch['gt_bboxes'], sampled.rois,
+                    gt_masks, batch['gt_bboxes'], sampled.rois,
                     sampled.matched_gt, self.mask_size)
             with record_function('step/mask_head_and_loss'):
                 pos_w = (sampled.is_pos & sampled.label_valid).float()

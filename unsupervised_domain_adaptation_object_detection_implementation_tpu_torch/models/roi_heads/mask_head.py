@@ -123,6 +123,18 @@ def box_frame_crops(gt_masks: torch.Tensor, gt_boxes: torch.Tensor,
             frame_rois.reshape(b * s, 1, 4).detach().contiguous())
 
 
+def batch_gt_masks(batch) -> torch.Tensor:
+    """The batch's (B, G, M, M) `gt_masks`. A batch without them, from a
+    train pipeline whose `PackDetInputs` lacks `with_mask=True`, raises a
+    KeyError, as the JAX step does."""
+    if 'gt_masks' not in batch:
+        raise KeyError(
+            "gt_masks: the batch has no mask rasters; a Mask R-CNN train "
+            "pipeline needs PackDetInputs(with_mask=True) (and "
+            "LoadAnnotations(with_mask=True))")
+    return batch['gt_masks']
+
+
 def mask_targets_from_box_frame(gt_masks: torch.Tensor,
                                 gt_boxes: torch.Tensor,
                                 rois: torch.Tensor,

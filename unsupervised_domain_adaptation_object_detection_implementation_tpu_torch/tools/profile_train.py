@@ -2,7 +2,8 @@
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.profile_train \
         [--config configs/da/faster_rcnn_r50_daf_c2f.py] [--steps 5] \
-        [--size 512 1024] [--batch 2] [--out build/profile/profile_train.json] \
+        [--size 512 1024] [--batch 2] [--mask-size 112] \
+        [--out build/profile/profile_train.json] \
         [--cfg-options model.dtype=bfloat16]
 
 Builds the trainer with seeded random weights (past the lr warmup, as
@@ -11,7 +12,8 @@ one target image of 512x1024 (`--batch 8 --size 128 192` is the synth
 loop's step; the domains matter to the DA detectors only; the FPN
 and Mask R-CNN configs, configs/cityscapes/*_r50_fpn_1x_cityscapes.py and
 configs/mask_rcnn/mask_rcnn_r50_caffe_c4_1x.py, train on both images; a
-detector with a mask head also gets seeded 112x112 box-frame rasters),
+detector with a mask head also gets seeded box-frame rasters of
+`--mask-size`, 112 by default, 56 for configs/da/synth_mask_smoke.py),
 and reports (`--cfg-options` merges dotted overrides into the config, as
 the training command line does: `model.dtype=bfloat16` profiles the bf16
 step):
@@ -140,6 +142,7 @@ def main(argv=None):
     ap.add_argument('--size', type=int, nargs=2, default=(512, 1024))
     ap.add_argument('--batch', type=int, default=2,
                     help='images a step, half source and half target')
+    ap.add_argument('--mask-size', type=int, default=MASK_SIZE)
     ap.add_argument('--device', default='cuda')
     ap.add_argument('--out', default='build/profile/profile_train.json')
     ap.add_argument('--cfg-options', nargs='+', default=[],
@@ -164,8 +167,8 @@ def main(argv=None):
     batch = demo_batch(b=args.batch, h=args.size[0], w=args.size[1],
                        num_classes=trainer.model.num_classes, seed=args.seed,
                        device=args.device,
-                       mask_size=MASK_SIZE if hasattr(trainer.model,
-                                                      'mask_head') else None)
+                       mask_size=args.mask_size if hasattr(
+                           trainer.model, 'mask_head') else None)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     for _ in range(2):                                       # warm-up
         state, _ = trainer.step(state, batch, gen)

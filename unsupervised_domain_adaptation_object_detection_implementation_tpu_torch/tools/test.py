@@ -26,7 +26,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description='Test a detector')
     p.add_argument('config')
     p.add_argument('checkpoint', nargs='?', default=None)
-    p.add_argument('--eval', default='mAP', help='mAP | recall')
+    p.add_argument('--eval', default='mAP', help='mAP | recall | bbox')
     p.add_argument('--out', default=None, help='save raw results (.pkl)')
     p.add_argument('--show-dir', default=None, help='not ported: raises')
     p.add_argument('--flip-tta', action='store_true',
