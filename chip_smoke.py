@@ -210,6 +210,36 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and the mask targets (C=1, o=28, aligned=False) on the loader's 56² and
    112² rasters (entries `roi_align_pyramid_{fwd,bwd}/coco_{synth,r50}_*`).
    build/coco_runs/ is emptied once the phase's checks pass.
+22. parallel — multi-GPU training (`parallel/`). NCCL at world size 1:
+   the flagship (R50-DC5, full width, f32, TF32 off, seeded weights,
+   past the lr warmup) runs 1 + 3 steps of the parallel step (the
+   gradients and metrics summed over a data axis of one rank) and 1 + 3
+   of the single-device trainer on phase 5's batch: the first step's
+   losses within 1e-4 relative and the parameters after the 4 steps within
+   1e-4 of scale (the later steps' losses are logged: the pair's backward
+   adds with atomics, in an order that changes from run to run, and the
+   instance loss's k-means amplifies it), the steps timed in the same
+   call. Then `tools.DA_train --launcher jax` on phase
+   15's synth config and subset: its records against phase 15's
+   single-device run with the same seed (the same records; train losses,
+   logged after 4 and 8 steps, within 5e-2 relative and AP50 within 0.02:
+   the run-to-run order of the backward's atomic adds, amplified as in
+   the flagship's later steps); `--n-devices 2` raises on a machine with
+   one card. Two gloo ranks then share the card (NCCL
+   refuses two ranks on one device): each takes its half of a global
+   batch of 4 images 512x1024 (2 source, 2 target) and runs 3 flagship
+   steps; after every step the two ranks' parameters, momentum, EMA and
+   DA BatchNorm statistics are bit-identical (a digest of every 32-bit
+   word), and each rank launches the pair's forward and backward once a
+   step. Rank 0 holds the pair to the plain version on the RoIs its
+   trained model samples from its rows, and times it (entries
+   `roi_align_pyramid_{fwd,bwd}/dp_step`). Last, the tiny fixture as
+   phase 8 runs it (TF32 off, dropout off, fixed priorities): one step on
+   the 2 gloo ranks equals one process's step on the global batch of 4
+   (losses 1e-4 relative, parameters 1e-4 of scale). With two or more
+   cards, the flagship's 2-rank check runs across cards over NCCL too.
+   No failure of a rank is caught: a rank that fails or outlasts its
+   limit fails the run.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -260,6 +290,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     sample_rois
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ops import (
     cuda_build, roi_align)
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.parallel import (
+    dryrun, init_multihost, make_layout, run_ranks)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
     DA_train
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
@@ -2086,6 +2118,7 @@ def phase_loop(card, kernels):
         e['launches'] = fwd if e['name'] == FWD_LOOP else bwd
     kernels += entries
     shutil.rmtree(LOOP_DIR)
+    return recs
 
 # ---- the rest of the DA family: DAF-original, MAF, SWDA, DeepAlign,
 # Tri-attention, CyDA and CyCADA ---------------------------------------------
@@ -3192,6 +3225,220 @@ def phase_coco_mask(card, kernels):
     shutil.rmtree(COCO_DIR)
 
 
+# ---- multi-GPU training ----------------------------------------------------
+
+FWD_DP, BWD_DP = ('roi_align_pyramid_fwd/dp_step',
+                  'roi_align_pyramid_bwd/dp_step')
+LOOP_DIST_DIR = 'build/loop_dist'
+RANK_LIMIT_S = 600
+
+
+def _dp_probe(model, batch):
+    """Rank 0 of a data-parallel run: the pair against the plain version on
+    the RoIs its trained model samples from its rows, forward and
+    backward, timed; entries for both (None on other ranks)."""
+    if torch.distributed.get_rank() != 0:
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    b, h, w, c = feats.shape
+    got = dc5_fwd(feats, rois)
+    err = _check(FWD_DP, got, roi_align.batched_roi_align_plain(
+        feats, rois, 1 / 16, flatten=True), TOL_F32, "on a rank's RoIs")
+    ms = time_ms(lambda: dc5_fwd(feats, rois), 20)
+    plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
+        feats, rois, 1 / 16, flatten=True), 3, warmup=1)
+    nbytes, ops = roi_align_work(rois, h, w, c)
+    fwd = _entry(FWD_DP, 63, nbytes, ops, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms)
+    log(f'parallel: {FWD_DP} {tuple(feats.shape)} x {tuple(rois.shape[:2])} '
+        f'rois: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{fwd["bound_ms"]:.4f} ms ({fwd["bound_by"]})')
+    grad = torch.randn(got.shape, generator=gen, device=feats.device)
+    worst = _check(BWD_DP, dc5_bwd(grad, rois, tuple(feats.shape)),
+                   plain_backward(feats, rois, grad, True), TOL_F32,
+                   "on a rank's RoIs")
+    return [fwd, time_dc5_backward(BWD_DP, feats, rois, grad, worst)]
+
+
+def _dp_rank(config, batch, steps, tf32, probe):
+    """A rank of the flagship's data-parallel check (`dryrun.rank_steps`
+    with state digests after every step)."""
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dryrun.rank_steps(
+        Config.fromfile(config), batch, steps,
+        device=f'cuda:{torch.cuda.current_device()}', digests=True,
+        payload=False, probe=_dp_probe if probe else None)
+
+
+def _tiny_dp_rank(batch, pri):
+    """A rank (or the one process) of the tiny fixture's step, as phase 8
+    runs it: TF32 off, dropout off, fixed sampler priorities."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dryrun.rank_steps(
+        Config.fromfile(TINY), batch, 1,
+        device=f'cuda:{torch.cuda.current_device()}', sampler_priorities=pri,
+        no_dropout=True)
+
+
+def _check_replicas(label, ranks, steps):
+    """Every rank's digests equal rank 0's after every step, and each rank
+    launched the pair's forward and backward once a step."""
+    for r, res in enumerate(ranks):
+        if res['launches'] != [(1, 1)] * steps:
+            raise RuntimeError(f'{label}: rank {r} launches '
+                               f'{res["launches"]}')
+        for i, (got, ref) in enumerate(zip(res['digests'],
+                                           ranks[0]['digests'])):
+            bad = [n for n in ref if got.get(n) != ref[n]]
+            if bad or set(got) != set(ref):
+                raise RuntimeError(f'{label}: rank {r} differs from rank 0 '
+                                   f'after step {i + 1}: {bad[:5]}')
+        if len(res['digests']) != steps:
+            raise RuntimeError(f'{label}: {len(res["digests"])} digests')
+    n = len(ranks[0]['digests'][0])
+    bn = sum('.mean' in k or '.var' in k for k in ranks[0]['digests'][0])
+    log(f'{label}: {len(ranks)} ranks bit-identical after each of {steps} '
+        f'steps over {n} tensors (parameters, buffers with {bn} BatchNorm '
+        f'statistics, momentum, EMA); losses '
+        f'{[round(m["loss"], 5) for m in ranks[0]["metrics"]]}; step ms '
+        f'rank 0 {[round(t, 1) for t in ranks[0]["ms"]]}')
+
+
+def phase_parallel(card, kernels, loop_records):
+    """Multi-GPU training: NCCL at world size 1 (the flagship's parallel
+    step against the single-device trainer, the launcher CLI against
+    phase 15), two gloo ranks on the card (bit-identical replicas, the
+    pair on a rank's RoIs, the tiny step against one process), NCCL across
+    cards where there are several."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_multihost(device='cuda')
+    layout = make_layout(1)
+    batch = demo_batch()
+    runs = {}
+    for label, lay in (('single-device trainer', None),
+                       ('parallel step, NCCL world size 1', layout)):
+        trainer = init_trainer(FLAGSHIP, device='cuda', seed=0,
+                               steps_per_epoch=CITYSCAPES_STEPS, layout=lay)
+        state = trainer.state._replace(
+            opt_state=at_count(trainer.state.opt_state, 500))
+        gen = torch.Generator(device='cuda')
+        losses, times = [], []
+        for i in range(4):
+            gen.manual_seed(train_api._sampler_seed(0, i))
+            torch.manual_seed(train_api._dropout_seed(0, i))
+            FWD.launches = BWD.launches = 0
+            t0 = time.perf_counter()
+            state, metrics = trainer.step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if (FWD.launches, BWD.launches) != (1, 1):
+                raise RuntimeError(f'{label}: launches {FWD.launches} / '
+                                   f'{BWD.launches}')
+            losses.append({k: float(v) for k, v in metrics.items()})
+        runs[label] = (losses, times[1:], {
+            n: p.detach().clone() for n, p in state.params.items()})
+        del trainer, state
+        _free()
+    (ref_l, ref_t, ref_p), (got_l, got_t, got_p) = runs.values()
+    rels = [max(abs(g[k] - v) / max(abs(v), 1e-6) for k, v in r.items())
+            for r, g in zip(ref_l, got_l)]
+    rel = rels[0]
+    err = max(float((got_p[n] - v).abs().max()) /
+              max(1.0, float(v.abs().max())) for n, v in ref_p.items())
+    log(f'parallel: flagship 4 steps, parallel step (NCCL, world size 1) vs '
+        f'single-device trainer: worst relative loss difference each step '
+        f'{[f"{r:.3e}" for r in rels]} (held: the first), worst parameter '
+        f'difference after the 4 steps {err:.3e} of scale; step ms (3 after '
+        f'1 warm-up) parallel {[round(t, 2) for t in got_t]} median '
+        f'{np.median(got_t):.2f}, single-device '
+        f'{[round(t, 2) for t in ref_t]} median {np.median(ref_t):.2f} '
+        f'[{card}]')
+    del runs, ref_p, got_p
+    _free()
+    if not rel <= 1e-4 or not err <= 1e-4:
+        raise RuntimeError(f'parallel step vs trainer: {rel}, {err}')
+
+    # the launcher CLI on phase 15's config, against phase 15's records
+    torch.backends.cudnn.allow_tf32 = True
+    shutil.rmtree(LOOP_DIST_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    DA_train.main([SYNTH, '--work-dir', LOOP_DIST_DIR, '--launcher', 'jax',
+                   '--cfg-options', *LOOP_OPTIONS])
+    seconds = time.perf_counter() - t0
+    recs = _check_log(f'{LOOP_DIST_DIR}/train_log.jsonl', [1, 2])
+    if [(r['mode'], r['epoch']) for r in recs] != \
+            [(r['mode'], r['epoch']) for r in loop_records]:
+        raise RuntimeError(f'launcher records {recs} vs {loop_records}')
+    worst = 0.0
+    for got, ref in zip(recs, loop_records):
+        for k, v in ref.items():
+            if k == 'AP50':
+                if abs(got[k] - v) > 0.02:
+                    raise RuntimeError(f'launcher AP50 {got[k]} vs {v}')
+            elif isinstance(v, float) and got['mode'] == 'train':
+                worst = max(worst, abs(got[k] - v) / max(abs(v), 1e-6))
+    log(f'parallel: tools.DA_train --launcher jax (NCCL, world size 1) '
+        f'2 epochs in {seconds:.2f} s; records {recs}; worst relative '
+        f'train-loss difference to phase 15 {worst:.3e}')
+    if not worst <= 5e-2:
+        raise RuntimeError(f'launcher vs phase 15: {worst}')
+    shutil.rmtree(LOOP_DIST_DIR)
+    torch.distributed.destroy_process_group()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        try:
+            DA_train.main([SYNTH, '--work-dir', LOOP_DIST_DIR, '--n-devices',
+                           '2', '--cfg-options', *LOOP_OPTIONS])
+        except ValueError as e:
+            log(f'parallel: --n-devices 2 on {cards} card raises: {e}')
+        else:
+            raise RuntimeError('--n-devices 2 ran on one card')
+        shutil.rmtree(LOOP_DIST_DIR, ignore_errors=True)
+
+    # two gloo ranks on one card: bit-identical replicas, the pair
+    big = {k: v.numpy() for k, v in demo_batch(4, device='cpu').items()}
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dp_rank, 2, (FLAGSHIP, big, 3, True, True),
+                      device='cuda:0', backend='gloo',
+                      timeout_s=RANK_LIMIT_S)
+    log(f'parallel: 2 gloo ranks on cuda:0, flagship, global batch 4 '
+        f'images 512x1024 in {time.perf_counter() - t0:.1f} s [{card}]')
+    _check_replicas('parallel gloo x2 on one card', ranks, 3)
+    entries = ranks[0]['probe']
+    for e in entries:
+        e['launches'] = sum(f if e['name'] == FWD_DP else b
+                            for f, b in ranks[0]['launches'])
+    kernels += entries
+    if cards >= 2:
+        ranks = run_ranks(_dp_rank, 2, (FLAGSHIP, big, 3, True, False),
+                          device='cuda', timeout_s=RANK_LIMIT_S)
+        _check_replicas(f'parallel NCCL x2 across {cards} cards', ranks, 3)
+
+    # the tiny fixture: 2 gloo ranks against one process on the batch of 4
+    tiny = dryrun.demo_batch(4)
+    gen = torch.Generator().manual_seed(5)
+    pri = dict(rpn=torch.rand(4, 4 * 6 * 6, generator=gen).numpy(),
+               rcnn=torch.rand(4, 6 + 64, generator=gen).numpy())
+    ref = _tiny_dp_rank(tiny, pri)
+    got = run_ranks(_tiny_dp_rank, 2, (tiny, pri), device='cuda:0',
+                    backend='gloo', timeout_s=RANK_LIMIT_S)[0]
+    rel = max(abs(got['metrics'][0][k] - v) / max(abs(v), 1e-6)
+              for k, v in ref['metrics'][0].items())
+    err = max(float(np.abs(got['payload']['params'][n] - v.cpu().numpy())
+                    .max()) / max(1.0, float(v.abs().max()))
+              for n, v in ref['payload']['params'].items())
+    log(f'parallel: tiny fixture step, 2 gloo ranks vs one process on the '
+        f'global batch of 4: worst relative loss difference {rel:.3e}, '
+        f'worst parameter difference {err:.3e} of scale')
+    if not rel <= 1e-4 or not err <= 1e-4:
+        raise RuntimeError(f'tiny 2-rank step vs one process: {rel}, {err}')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3209,7 +3456,7 @@ def main():
     phase_c4_serving(card, kernels)
     phase_c4_train(card, kernels)
     phase_mask_reference()
-    phase_loop(card, kernels)
+    loop_records = phase_loop(card, kernels)
     phase_da_family(card, kernels)
     phase_gan_loop(card)
     phase_da_family_reference()
@@ -3219,6 +3466,7 @@ def main():
     phase_swin_loop(card)
     phase_swin_reference()
     phase_coco_mask(card, kernels)
+    phase_parallel(card, kernels, loop_records)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -98,6 +98,29 @@ def test_polygon_fill_where_the_outline_revisits_a_vertex(case):
     assert set(np.nonzero(diff)[0].tolist()) <= revisited
 
 
+def test_polygon_fill_on_fuzzed_revisiting_outlines():
+    """300 seeded integer outlines of 3-7 vertices on a 12x12 raster, each
+    with 1-2 earlier vertices visited again: the fill equals Pillow's on
+    all but 4 of them, which differ in 9 pixels in all, each on a
+    revisited vertex's row (the open fault of `ROADMAP.md` Queue 3,
+    pinned)."""
+    rs = np.random.RandomState(0)
+    n, outlines, pixels = 12, 0, 0
+    for _ in range(300):
+        pts = [tuple(int(v) for v in rs.randint(0, n + 1, 2))
+               for _ in range(rs.randint(3, 8))]
+        for _ in range(rs.randint(1, 3)):
+            pts.insert(rs.randint(0, len(pts) + 1),
+                       pts[rs.randint(0, len(pts))])
+        diff = _port_fill(np.float32(pts), n) != _pil_fill(np.float32(pts), n)
+        if diff.any():
+            outlines += 1
+            pixels += int(diff.sum())
+            revisited = {y for x, y in pts if pts.count((x, y)) > 1}
+            assert set(np.nonzero(diff)[0].tolist()) <= revisited, pts
+    assert (outlines, pixels) == (4, 9)
+
+
 def _synth_polygon(rs, circle):
     """A polygon as `make_synthetic_da_dataset.py --coco-masks` writes it
     (square 4-gon or circle 16-gon of an s-pixel box) and its box."""

@@ -85,14 +85,15 @@ def run(tmp_path_factory):
             'cpu'),
         2, shuffle=False, two_stream=False, drop_last=False)))
 
-    def eval_spy(model, dataset, samples_per_batch=2, metric='mAP'):
+    def eval_spy(model, dataset, samples_per_batch=2, metric='mAP',
+                 **kwargs):
         with torch.no_grad():
             pred = {k: v.clone() for k, v in model.predict(probe).items()}
         evals.append(dict(
             params={n: p.detach().clone()
                     for n, p in model.named_parameters()},
             training=model.training, pred=pred))
-        return orig_eval(model, dataset, samples_per_batch, metric)
+        return orig_eval(model, dataset, samples_per_batch, metric, **kwargs)
 
     def restore_spy(model, state, ckpt):
         state = orig_restore(model, state, ckpt)
@@ -375,11 +376,9 @@ def test_max_epochs_overrides_the_runner_not_the_callers_config(tmp_path):
     assert cfg.runner.max_epochs == 2
 
 
+# the multi-device options (launcher, n_devices, mesh, dist_params) train:
+# tests/test_torch_parallel_loop.py
 @pytest.mark.parametrize('kwargs,cfg_over,match', [
-    (dict(launcher='jax'), {}, 'one device'),
-    (dict(n_devices=2), {}, 'one device'),
-    ({}, {'mesh': dict(data=-1, model=2)}, 'mesh'),
-    ({}, {'dist_params': dict(backend='nccl')}, 'dist_params'),
     ({}, {'load_submodule': dict(teacher='x')}, 'load_submodule'),
     (dict(pretrained_backbone='pvt.pth'), {}, 'pretrained_backbone'),
     ({}, {'fp16': dict(loss_scale=512.0), 'model.dtype': 'float16'}, 'fp16'),

@@ -31,6 +31,27 @@ def test_imresize_within_one_grey_level(src_hw, dst_wh):
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize('src_hw,dst_wh', [((1024, 2048), (1000, 500)),
+                                           ((1024, 2048), (1000, 600)),
+                                           ((123, 217), (100, 57)),
+                                           ((50, 70), (131, 93)),
+                                           ((64, 96), (96, 64))])
+def test_imresize_of_a_float_image_follows_cv2(src_hw, dst_wh):
+    """A float image (as `PhotoMetricDistortion` leaves it) resizes as the
+    JAX `_imresize` resizes it, through cv2's `INTER_LINEAR`: within 2e-4
+    of the 255 range (0.051; the largest gap, at the DeepAlign-Swin
+    pipeline's 2048x1024 → (1000, 500), is ~0.038: the two compute the
+    taps' weights in another precision), on downscales, upscales and
+    non-integer factors; the antialiased filter that the uint8 path uses
+    is off by grey levels there."""
+    rs = np.random.RandomState(sum(src_hw) + dst_wh[0])
+    img = (rs.uniform(-20, 275, src_hw + (3,))).astype(np.float32)
+    ref = jtf._imresize(img, dst_wh)
+    got = ttf.imresize(torch.from_numpy(img), dst_wh).numpy()
+    assert got.shape == ref.shape and got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 2e-4 * 255
+
+
 def test_test_pipeline_and_collate_match():
     rs = np.random.RandomState(0)
     imgs = [rs.randint(0, 256, hw + (3,)).astype(np.uint8)

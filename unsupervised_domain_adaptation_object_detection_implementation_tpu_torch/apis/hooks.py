@@ -13,6 +13,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 @torch.no_grad()
@@ -37,13 +38,19 @@ def ema_update(ema_params: Dict[str, torch.Tensor],
 @torch.no_grad()
 def guard_nonfinite_update(old_params: Dict[str, torch.Tensor],
                            new_params: Dict[str, torch.Tensor],
-                           loss: torch.Tensor
+                           loss: torch.Tensor, all_ranks: bool = False
                            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Keep the old parameters when the loss or any new parameter is not
     finite (one sum over all new parameters is non-finite iff one of them
-    is). Returns (params, skipped), with no read-back to the host."""
+    is). Returns (params, skipped), with no read-back to the host. With
+    `all_ranks` every rank of the default process group skips when one
+    would (the ranks of a model axis hold different shards)."""
     total = torch.stack([p.float().sum() for p in new_params.values()]).sum()
     ok = torch.isfinite(loss) & torch.isfinite(total)
+    if all_ranks:
+        bad = (~ok).float()
+        dist.all_reduce(bad)
+        ok = bad == 0
     params = {n: new if new is old_params[n] else
               torch.where(ok, new, old_params[n])
               for n, new in new_params.items()}

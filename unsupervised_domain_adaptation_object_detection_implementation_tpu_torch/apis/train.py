@@ -13,12 +13,19 @@ when the model config names no `dtype`, as the JAX package's fp16 gate
 does; `loss_scale` is ignored (bf16 has f32's exponent range). Serving
 (`apis.init_detector`) reads no `fp16`, as in the JAX package.
 
-`train_detector(cfg, work_dir)` is the config-driven loop on one device:
-the train set and its loader (two-stream for a source/target
-`ConcatDataset`), the trainer with the loader's epoch length, resume or
-weight loading, then per epoch (or per `max_iters` for the iteration-based
-runner) the steps, `train_log.jsonl` records, `ckpt_<tag>` checkpoints and
-evaluation on the val set with the EMA parameters.
+`train_detector(cfg, work_dir)` is the config-driven loop: the train set
+and its loader (two-stream for a source/target `ConcatDataset`), the
+trainer with the loader's epoch length, resume or weight loading, then per
+epoch (or per `max_iters` for the iteration-based runner) the steps,
+`train_log.jsonl` records, `ckpt_<tag>` checkpoints and evaluation on the
+val set with the EMA parameters.
+
+On several ranks (`n_devices`, `launcher='jax'` or a `dist_params` block;
+`parallel/`) it runs the JAX mesh loop's global-batch step: a global batch
+of `samples_per_gpu` rows a data rank, each rank fed its contiguous rows,
+the schedule counted in global steps, the box head split over a `mesh`
+block's model axis; rank 0 writes the log and the checkpoints, in the
+one-device layout.
 """
 
 from __future__ import annotations
@@ -32,11 +39,15 @@ from typing import (Callable, Dict, Mapping, NamedTuple, Optional, Tuple,
                     Union)
 
 import torch
+import torch.distributed as dist
 
 from ..data import DataLoader, build_dataset
 from ..models.builder import build_detector, train_canvas
 from ..models.layers.precision import compute_dtype
 from ..models.weight_init import init_random_weights_
+from ..parallel.mesh import Layout, mesh_from_cfg, mesh_shape
+from ..parallel.multihost import init_multihost, rank_device, run_ranks
+from ..parallel.shardings import gather_payload, shard_train_state_
 from ..utils.checkpoint import (latest_checkpoint, load_checkpoint,
                                 load_pretrained_backbone, load_weights,
                                 read_pretrained_backbone,
@@ -152,7 +163,8 @@ def init_trainer(config: Union[str, Config],
                  variables: Optional[Mapping] = None,
                  device: Union[str, torch.device] = 'cuda',
                  seed: int = 0,
-                 steps_per_epoch: Optional[int] = None) -> Trainer:
+                 steps_per_epoch: Optional[int] = None,
+                 layout: Optional[Layout] = None) -> Trainer:
     """Build the config's detector on `device` (CUDA unless the caller asks
     for the CPU; raises without a card), with `variables` converted from
     the JAX package or seeded random weights, in train mode and with
@@ -166,7 +178,11 @@ def init_trainer(config: Union[str, Config],
     canvas (`train_canvas`). The compute type is the model config's
     `dtype`, else bf16 under an `fp16` block (`train_model_cfg`).
     `steps_per_epoch`, the loader's length, turns epoch milestones into
-    steps; a config with the epoch-based runner raises without it."""
+    steps; a config with the epoch-based runner raises without it. With a
+    `layout` (`parallel/mesh.py`) the step is a rank's part of the
+    global-batch step; the state stays in the one-device layout until
+    `parallel/shardings.py:shard_train_state_` splits it over a model
+    axis."""
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     spec = optimizer_spec(cfg, steps_per_epoch)
@@ -184,7 +200,7 @@ def init_trainer(config: Union[str, Config],
     if cfg.model.get('type') in _GAN:
         state, tx_main, tx_disc = create_gan_train_state(
             model, spec, frozen_stages=frozen)
-        step = make_gan_train_step(model, tx_main, tx_disc)
+        step = make_gan_train_step(model, tx_main, tx_disc, layout)
         return Trainer(model, state, step, (tx_main, tx_disc), spec, cfg,
                        device)
     ema_momentum = ema_momentum_of(cfg)
@@ -193,30 +209,48 @@ def init_trainer(config: Union[str, Config],
     nan_guard = bool((cfg.get('optimizer_config', {}) or {}).get(
         'nan_guard', cfg.model.get('type', '') in _ADVERSARIAL))
     step = make_train_step(model, tx, skip_nonfinite=nan_guard,
-                           ema_momentum=ema_momentum)
+                           ema_momentum=ema_momentum, layout=layout)
     return Trainer(model, state, step, tx, spec, cfg, device)
 
 
-def _refuse_unported(cfg: Config, n_devices, launcher):
-    """Raise on what the single-device loop does not port, each with its
-    reason, before the loop makes its work dir: an unported compute type
-    (float16) among them."""
-    refused = [
-        (launcher not in (None, 'none'), f'launcher={launcher!r}: the port '
-         'trains on one device; multi-GPU training comes with its own slice'),
-        (n_devices not in (None, 1), f'n_devices={n_devices}: the port '
-         'trains on one device; multi-GPU training comes with its own slice'),
-        (bool(cfg.get('mesh')), 'a `mesh` block: the port trains on one '
-         'device; multi-GPU training comes with its own slice'),
-        (bool(cfg.get('dist_params')), 'a `dist_params` block: the port '
-         'trains on one device; multi-GPU training comes with its own slice'),
-        (bool(cfg.get('load_submodule')), 'a `load_submodule` block: '
-         'grafting a donor checkpoint into a submodule is not ported yet'),
-    ]
-    for hit, reason in refused:
-        if hit:
-            raise NotImplementedError(reason)
+def _refuse_unported(cfg: Config, launcher):
+    """Raise on what the loop does not port, each with its reason, before
+    the loop makes its work dir: an unported compute type (float16) among
+    them."""
+    if launcher not in (None, 'none', 'jax'):
+        raise ValueError(f"launcher={launcher!r}: 'jax' (or 'none')")
+    if cfg.get('load_submodule'):
+        raise NotImplementedError('a `load_submodule` block: grafting a '
+                                  'donor checkpoint into a submodule is not '
+                                  'ported yet')
     compute_dtype(train_model_cfg(cfg).get('dtype'))
+
+
+def _train_rank(cfg: Config, work_dir: str, kwargs: Dict) -> Dict[str, float]:
+    """One rank of `train_detector(n_devices=k)` (a spawned process whose
+    process group is set up)."""
+    return train_detector(cfg, work_dir, **kwargs)
+
+
+def _join_process_group(cfg: Config, n_devices, launcher, device
+                        ) -> Optional[Layout]:
+    """The layout of this process's rank: `launcher='jax'` or a
+    `dist_params` block initialise the default process group
+    (`parallel/multihost.py:init_multihost`), a spawned rank has one
+    already; None for a single process, where a `mesh` block must hold one
+    rank."""
+    if launcher == 'jax' or cfg.get('dist_params'):
+        params = dict(cfg.get('dist_params') or {})
+        init_multihost(params.get('coordinator_address'),
+                       params.get('num_processes'), params.get('process_id'),
+                       params.get('backend'), device)
+    if not dist.is_initialized():
+        mesh_shape(cfg, 1)
+        return None
+    if n_devices not in (None, dist.get_world_size()):
+        raise ValueError(f'n_devices={n_devices} in a process group of '
+                         f'{dist.get_world_size()} ranks')
+    return mesh_from_cfg(cfg)
 
 
 @contextlib.contextmanager
@@ -300,9 +334,31 @@ def train_detector(cfg: Config, work_dir: str,
     does in any process; the loader's sampler and the datasets draw from
     `seed`.
 
-    Multi-device training and submodule grafting raise
-    NotImplementedError."""
-    _refuse_unported(cfg, n_devices, launcher)
+    Several ranks: `n_devices=k` (k > 1) in a single process starts k ranks
+    itself (`parallel/multihost.py:run_ranks`: one card each, more than
+    the machine has raises; gloo ranks on the CPU) and returns rank 0's
+    metrics; `launcher='jax'` or a `dist_params` block joins this process
+    to a process group as one rank (`init_multihost`). The ranks form the
+    `mesh` block's (data, model) layout. Each rank walks the global
+    sampler (`samples_per_gpu` rows a data rank, so the epoch and the
+    schedule count global steps, as in the JAX loop) and keeps its own
+    rows; a two-stream loader needs an even share a rank. Every rank seeds
+    its generators alike, so the run computes what one process computes
+    on the global batch. Rank 0 writes the records and the checkpoints
+    (the one-device layout, the model axis's shards gathered), and
+    `resume_from` restores any checkpoint onto any layout. Submodule
+    grafting raises NotImplementedError."""
+    _refuse_unported(cfg, launcher)
+    if n_devices not in (None, 1) and not dist.is_initialized():
+        kwargs = dict(resume_from=resume_from, load_from=load_from,
+                      pretrained_backbone=pretrained_backbone, seed=seed,
+                      log_interval=log_interval, max_epochs=max_epochs,
+                      eval_interval=eval_interval,
+                      checkpoint_interval=checkpoint_interval, device=device)
+        threads = max(1, torch.get_num_threads() // n_devices)
+        return run_ranks(_train_rank, n_devices, (cfg, work_dir, kwargs),
+                         device=device, threads=threads,
+                         timeout_s=None)[0]
     pretrained = None
     if pretrained_backbone:
         # read first: a layout the port has no trunk for raises before the
@@ -313,6 +369,10 @@ def train_detector(cfg: Config, work_dir: str,
             raise NotImplementedError(
                 f'pretrained_backbone={pretrained_backbone!r}: {err}') from err
     device = resolve_device(device)
+    layout = _join_process_group(cfg, n_devices, launcher, device)
+    main = layout is None or layout.rank == 0
+    if layout is not None:
+        device = rank_device(device, layout.rank)
     os.makedirs(work_dir, exist_ok=True)
     if max_epochs and 'Iter' not in str((cfg.get('runner') or {}).get(
             'type', '')):
@@ -320,10 +380,20 @@ def train_detector(cfg: Config, work_dir: str,
         cfg.merge_from_dict({'runner.max_epochs': max_epochs})
     train_ds = build_dataset(cfg.data['train'], device)
     samples_per_batch = cfg.data.get('samples_per_gpu', 2)
-    loader = DataLoader(train_ds, samples_per_batch, seed=seed)
+    ranks = 1 if layout is None else layout.data.size
+    rows = None
+    if ranks > 1:
+        r = layout.data.rank
+        rows = (r * samples_per_batch, (r + 1) * samples_per_batch)
+    loader = DataLoader(train_ds, samples_per_batch * ranks, seed=seed,
+                        rows=rows)
+    if ranks > 1 and loader.two_stream and samples_per_batch % 2:
+        raise ValueError(f'samples_per_gpu={samples_per_batch}: a rank of a '
+                         'two-stream loader needs as many source rows as '
+                         'target rows, an even share')
     steps_per_epoch = len(loader)
     trainer = init_trainer(cfg, device=device, seed=seed,
-                           steps_per_epoch=steps_per_epoch)
+                           steps_per_epoch=steps_per_epoch, layout=layout)
     model, state = trainer.model, trainer.state
     # the reference's NumClassCheckHook
     ds_classes = getattr(train_ds, 'CLASSES', None)
@@ -351,35 +421,47 @@ def train_detector(cfg: Config, work_dir: str,
             state = restore_train_state(model, state,
                                         load_checkpoint(path, device))
             start_epoch = state.step // max(steps_per_epoch, 1)
-            print(f'[train] resumed from {path} (epoch {start_epoch})')
+            if main:
+                print(f'[train] resumed from {path} (epoch {start_epoch})')
     elif load_from:
         load_weights(model, load_checkpoint(load_from, device), ema=False)
         _restart_ema(state)
-        print(f'[train] loaded weights from {load_from}')
+        if main:
+            print(f'[train] loaded weights from {load_from}')
+    if layout is not None:
+        shard_train_state_(model, state, trainer.optimizer, layout)
 
     gen = torch.Generator(device=device)
     classes = list(ds_classes or [])
     val_ds = None
     metrics_out: Dict[str, float] = {}
 
+    def log(rec: Dict, tag: str):
+        if main:
+            print(f'[{tag}] {rec}')
+            log_f.write(json.dumps(rec) + '\n')
+            log_f.flush()
+
     def do_ckpt(tag: int):
-        save_checkpoint(os.path.join(work_dir, f'ckpt_{tag}'),
-                        train_state_dict(model, state),
-                        meta=dict(epoch=tag, classes=classes))
+        payload = gather_payload(train_state_dict(model, state), layout)
+        if main:
+            save_checkpoint(os.path.join(work_dir, f'ckpt_{tag}'), payload,
+                            meta=dict(epoch=tag, classes=classes))
 
     def do_eval(tag_key: str, tag: int):
         nonlocal metrics_out, val_ds
         if val_ds is None:
             val_ds = build_dataset(cfg.data['val'], device)
         with _eval_weights(model, state):
-            metrics_out = evaluate_dataset(model, val_ds, samples_per_batch)
-        rec = dict(mode='val', **{tag_key: tag},
-                   **{k: round(float(v), 4) for k, v in metrics_out.items()})
-        print(f'[eval] {rec}')
-        log_f.write(json.dumps(rec) + '\n')
-        log_f.flush()
+            metrics_out = evaluate_dataset(model, val_ds, samples_per_batch,
+                                           layout=layout)
+        log(dict(mode='val', **{tag_key: tag},
+                 **{k: round(float(v), 4) for k, v in metrics_out.items()}),
+            'eval')
 
-    with open(os.path.join(work_dir, 'train_log.jsonl'), 'a') as log_f:
+    log_path = os.path.join(work_dir, 'train_log.jsonl')
+    with (open(log_path, 'a') if main
+          else contextlib.nullcontext()) as log_f:
         done = False
         for epoch in range(start_epoch, epochs):
             t_epoch = time.time()
@@ -390,11 +472,9 @@ def train_detector(cfg: Config, work_dir: str,
                 g_it = epoch * steps_per_epoch + it + 1
                 if (it + 1) % log_interval == 0 or it + 1 == steps_per_epoch:
                     m = {k: float(v) for k, v in metrics.items()}
-                    rec = dict(mode='train', epoch=epoch + 1, iter=it + 1,
-                               **{k: round(v, 5) for k, v in m.items()})
-                    print(f'[train] {rec}')
-                    log_f.write(json.dumps(rec) + '\n')
-                    log_f.flush()
+                    log(dict(mode='train', epoch=epoch + 1, iter=it + 1,
+                             **{k: round(v, 5) for k, v in m.items()}),
+                        'train')
                 if iter_based:
                     done = g_it >= max_iters
                     if g_it % checkpoint_interval == 0 or done:
@@ -404,8 +484,9 @@ def train_detector(cfg: Config, work_dir: str,
                         do_eval('iter', g_it)
                     if done:
                         break
-            print(f'[train] epoch {epoch + 1} done in '
-                  f'{time.time() - t_epoch:.1f}s')
+            if main:
+                print(f'[train] epoch {epoch + 1} done in '
+                      f'{time.time() - t_epoch:.1f}s')
             if done:
                 break
             if iter_based:
@@ -414,4 +495,6 @@ def train_detector(cfg: Config, work_dir: str,
                 do_ckpt(epoch + 1)
             if 'val' in cfg.data and (epoch + 1) % eval_interval == 0:
                 do_eval('epoch', epoch + 1)
+    if layout is not None:
+        dist.barrier()       # rank 0's files are written when any returns
     return metrics_out

@@ -21,6 +21,16 @@ The CycleGAN detectors train two parameter groups in one step
 (`make_gan_train_step`): the discriminators (`disc_s`, `disc_t`) on the
 `disc_*` loss terms, every other parameter on the rest, each group with
 its own optimizer; `opt_state` is then the pair (main, discriminators).
+
+Both steps take a `parallel.mesh.Layout` (None: one process). Each rank
+then runs the model on its rows of the global batch, with the layout
+active, so that the loss it differentiates is its share of the global
+batch's (`parallel/batch.py`); the gradients are summed over the data axis
+in one flat all-reduce before the clip, the update, the guard and the
+EMA, and the metrics are summed likewise, so that every rank logs the
+global losses and the guard skips on every rank together. Under a model
+axis the clip sums the split gradients' squares over it
+(`_FusedOptimizer.model_split`, `parallel/shardings.py`).
 """
 
 from __future__ import annotations
@@ -31,10 +41,13 @@ from typing import (Callable, Dict, Iterable, List, NamedTuple, Optional,
                     Tuple, Union)
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.profiler import record_function
 
 from ..models.detectors.cyda_faster_rcnn import DISC_KEYS
+from ..parallel.batch import sum_over_data
+from ..parallel.mesh import Layout, use_layout
 from .hooks import ema_update, guard_nonfinite_update
 
 
@@ -204,6 +217,9 @@ class _FusedOptimizer:
                 f'optimizer {spec.opt_type!r}: {type(self).__name__} '
                 f'runs {self.kinds}')
         self.spec = spec
+        # (names, process group): the parameters split over a model axis
+        # and its group, whose squares the clip sums over it
+        self.model_split = None
         self.schedule = make_lr_schedule(spec)
         self.trainable = dict(trainable)
         mults = paramwise_groups(self.trainable, spec.paramwise)
@@ -212,19 +228,30 @@ class _FusedOptimizer:
             if on:
                 self.groups[mults[n]].append(n)
 
-    def grad_scale(self, grads) -> Optional[torch.Tensor]:
+    @staticmethod
+    def _norms(grads) -> torch.Tensor:
+        gs = [g for g in grads if g is not None]
+        norms = torch._foreach_norm(gs) if gs[0].is_cuda else \
+            [g.square().sum().sqrt() for g in gs]
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def grad_scale(self, grads, split=(), model_group=None
+                   ) -> Optional[torch.Tensor]:
         """The clip factor over the global norm of every gradient given,
         frozen ones included; None without a clip. The norm is the JAX
         package's `optax.global_norm`. On the card one foreach norm, whose
         reductions run as trees; on the CPU each tensor's squares go through
         `sum`, because the CPU's vector norm adds a long tensor's squares
-        one by one in f32 (1e-3 off at 25 M elements)."""
+        one by one in f32 (1e-3 off at 25 M elements). `split` are the
+        gradients of the shards of a model axis: their squares are summed
+        over `model_group`, the replicated ones' once."""
         if not self.spec.grad_clip:
             return None
-        gs = [g for g in grads if g is not None]
-        norms = torch._foreach_norm(gs) if gs[0].is_cuda else \
-            [g.square().sum().sqrt() for g in gs]
-        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        gnorm = self._norms(grads)
+        if model_group is not None:
+            sq = self._norms(split).square()
+            dist.all_reduce(sq, group=model_group)
+            gnorm = torch.sqrt(gnorm.square() + sq)
         return torch.clamp(self.spec.grad_clip / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
 
@@ -233,7 +260,12 @@ class _FusedOptimizer:
         scaled by the clip factor; `grads` may be overwritten."""
         gs = [grads[n] if grads.get(n) is not None
               else torch.zeros_like(params[n]) for n in names]
-        s = self.grad_scale(grads.values())
+        if self.model_split is None:
+            s = self.grad_scale(grads.values())
+        else:
+            split, group = self.model_split
+            s = self.grad_scale([g for n, g in grads.items() if n not in split],
+                                [grads.get(n) for n in sorted(split)], group)
         if s is not None:
             torch._foreach_mul_(gs, s)
         return dict(zip(names, gs))
@@ -359,9 +391,28 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec,
     return TrainState(0, params, tx.init(params), ema_params), tx
 
 
+def _sum_gradients(grads: Dict[str, Optional[torch.Tensor]],
+                   params: Dict[str, torch.Tensor],
+                   layout: Layout) -> Dict[str, torch.Tensor]:
+    """`grads` summed over the layout's data axis (a parameter without a
+    gradient counts as zeros; an axis of one rank copies them)."""
+    names = list(grads)
+    summed = sum_over_data([g if g is not None else torch.zeros_like(params[n])
+                            for n, g in grads.items()], layout)
+    return dict(zip(names, summed))
+
+
+def _sum_metrics(metrics: Dict[str, torch.Tensor], layout: Layout
+                 ) -> Dict[str, torch.Tensor]:
+    """Each rank's loss shares summed over the data axis: the global
+    batch's losses."""
+    return dict(zip(metrics, sum_over_data(list(metrics.values()), layout)))
+
+
 def make_train_step(model: nn.Module, tx: _FusedOptimizer,
                     skip_nonfinite: bool = False,
-                    ema_momentum: Optional[float] = None) -> Callable:
+                    ema_momentum: Optional[float] = None,
+                    layout: Optional[Layout] = None) -> Callable:
     """The step (state, batch, generator=None, sampler_priorities=None) →
     (state, metrics). `generator` draws the samplers' priorities, or
     `sampler_priorities` gives them (see `FasterRCNN.loss`); dropout draws
@@ -370,27 +421,37 @@ def make_train_step(model: nn.Module, tx: _FusedOptimizer,
     momentum and batch statistics still advance. Metrics stay on the device
     (no read-back): `loss`, each loss term and `skipped_nonfinite`. The
     stages of the step are `step/...` profiler ranges (free without a
-    profiler), which `tools/profile_train.py` reads."""
+    profiler), which `tools/profile_train.py` reads. With a `layout` the
+    step is a rank's part of the global-batch step (see the module
+    docstring); the gradient sum is then the range `step/grad_all_reduce`."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 sampler_priorities: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model.train()
-        losses = model(batch, train=True, generator=generator,
-                       sampler_priorities=sampler_priorities)
-        total = sum(losses.values())
-        wrt = [n for n, p in state.params.items() if p.requires_grad]
-        with record_function('step/backward'):
-            grads = dict(zip(wrt, torch.autograd.grad(
-                total, [state.params[n] for n in wrt], allow_unused=True)))
+        with use_layout(layout):
+            losses = model(batch, train=True, generator=generator,
+                           sampler_priorities=sampler_priorities)
+            total = sum(losses.values())
+            wrt = [n for n, p in state.params.items() if p.requires_grad]
+            with record_function('step/backward'):
+                grads = dict(zip(wrt, torch.autograd.grad(
+                    total, [state.params[n] for n in wrt],
+                    allow_unused=True)))
+        metrics = dict(loss=total.detach(),
+                       **{k: v.detach() for k, v in losses.items()})
+        if layout is not None:
+            with record_function('step/grad_all_reduce'):
+                grads = _sum_gradients(grads, state.params, layout)
+                metrics = _sum_metrics(metrics, layout)
         with record_function('step/sgd_guard_ema'):
             new_params, new_opt = tx.fused_apply(grads, state.opt_state,
                                                  state.params)
-            metrics = {k: v.detach() for k, v in losses.items()}
             if skip_nonfinite:
                 new_params, skipped = guard_nonfinite_update(
-                    state.params, new_params, total.detach())
+                    state.params, new_params, metrics['loss'],
+                    all_ranks=layout is not None and layout.world > 1)
                 metrics['skipped_nonfinite'] = skipped.float()
             with torch.no_grad():
                 for n, p in state.params.items():
@@ -400,7 +461,6 @@ def make_train_step(model: nn.Module, tx: _FusedOptimizer,
             if ema_momentum is not None and ema is not None:
                 ema = ema_update(ema, state.params, ema_momentum,
                                  step=state.step)
-        metrics = dict(loss=total.detach(), **metrics)
         return state._replace(step=state.step + 1, opt_state=new_opt,
                               ema_params=ema), metrics
 
@@ -436,7 +496,8 @@ def create_gan_train_state(model: nn.Module, spec: OptimizerSpec,
 
 
 def make_gan_train_step(model: nn.Module, tx_main: _FusedOptimizer,
-                        tx_disc: _FusedOptimizer) -> Callable:
+                        tx_disc: _FusedOptimizer,
+                        layout: Optional[Layout] = None) -> Callable:
     """The step of the CycleGAN detectors (CyDA / CyCADA), with
     `make_train_step`'s signature: one forward, then two gradients of it —
     the sum of the terms not named `disc_*` with respect to the main
@@ -446,30 +507,42 @@ def make_gan_train_step(model: nn.Module, tx_main: _FusedOptimizer,
     optimizer, global-norm clip included. The batch statistics are the forward's.
     Metric `loss` is the sum of both totals. Like the JAX step it has no
     NaN guard and no EMA. The two backwards are the profiler ranges
-    `step/backward` and `step/backward_disc`."""
+    `step/backward` and `step/backward_disc`. With a `layout`, as
+    `make_train_step`: both groups' gradients go through one sum over the
+    data axis."""
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 sampler_priorities: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model.train()
-        losses = model(batch, train=True, generator=generator,
-                       sampler_priorities=sampler_priorities)
-        g_total = sum(v for k, v in losses.items()
-                      if not k.startswith('disc_'))
-        d_total = sum(v for k, v in losses.items() if k.startswith('disc_'))
         main, disc = split_params(state.params)
         opt_main, opt_disc = state.opt_state
         groups = []
-        for total, group, retain, stage in (
-                (g_total, main, True, 'step/backward'),
-                (d_total, disc, False, 'step/backward_disc')):
-            with record_function(stage):
-                wrt = [n for n, p in group.items() if p.requires_grad]
-                grads = torch.autograd.grad(
-                    total, [group[n] for n in wrt], retain_graph=retain,
-                    allow_unused=True)
-                groups.append(dict(zip(wrt, grads)))
+        with use_layout(layout):
+            losses = model(batch, train=True, generator=generator,
+                           sampler_priorities=sampler_priorities)
+            g_total = sum(v for k, v in losses.items()
+                          if not k.startswith('disc_'))
+            d_total = sum(v for k, v in losses.items()
+                          if k.startswith('disc_'))
+            for total, group, retain, stage in (
+                    (g_total, main, True, 'step/backward'),
+                    (d_total, disc, False, 'step/backward_disc')):
+                with record_function(stage):
+                    wrt = [n for n, p in group.items() if p.requires_grad]
+                    grads = torch.autograd.grad(
+                        total, [group[n] for n in wrt], retain_graph=retain,
+                        allow_unused=True)
+                    groups.append(dict(zip(wrt, grads)))
+        metrics = dict(loss=(g_total + d_total).detach(),
+                       **{k: v.detach() for k, v in losses.items()})
+        if layout is not None:
+            with record_function('step/grad_all_reduce'):
+                both = _sum_gradients({**groups[0], **groups[1]},
+                                      state.params, layout)
+                groups = [{n: both[n] for n in g} for g in groups]
+                metrics = _sum_metrics(metrics, layout)
         with record_function('step/sgd_guard_ema'):
             new_main, opt_main = tx_main.fused_apply(groups[0], opt_main,
                                                      main)
@@ -480,8 +553,6 @@ def make_gan_train_step(model: nn.Module, tx_main: _FusedOptimizer,
                     for n, p in new.items():
                         if p is not state.params[n]:
                             state.params[n].copy_(p)
-        metrics = dict(loss=(g_total + d_total).detach(),
-                       **{k: v.detach() for k, v in losses.items()})
         return state._replace(step=state.step + 1,
                               opt_state=(opt_main, opt_disc)), metrics
 

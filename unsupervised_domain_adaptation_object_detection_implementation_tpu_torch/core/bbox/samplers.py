@@ -5,7 +5,9 @@ Every candidate gets a priority; a group's selection is the members above
 the quota-th largest priority. The same priority vector ranks positives and
 negatives. Priorities are drawn from a `torch.Generator` unless the caller
 passes them (the parity tests pass the JAX package's
-`jax.random.uniform` draws). Leading batch dims are taken as they come.
+`jax.random.uniform` draws). Leading batch dims are taken as they come;
+under data parallelism a rank draws its rows of the global batch's draw
+(`parallel/batch.py:draw_rows`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from ...parallel.batch import draw_rows
 from ..post.nms import topk_stable
 
 
@@ -55,8 +58,10 @@ def random_sample(assigned_gt_inds: torch.Tensor,
     pos = assigned_gt_inds > 0
     neg = assigned_gt_inds == 0
     if priorities is None:
-        priorities = torch.rand(assigned_gt_inds.shape, generator=generator,
-                                device=assigned_gt_inds.device)
+        priorities = draw_rows(
+            lambda shape: torch.rand(shape, generator=generator,
+                                     device=assigned_gt_inds.device),
+            assigned_gt_inds.shape)
     r = priorities.float()
 
     num_expected_pos = int(num * pos_fraction)

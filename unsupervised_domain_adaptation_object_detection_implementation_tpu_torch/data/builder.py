@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Optional, Sequence, Union
+from typing import (Callable, Dict, Iterator, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -99,7 +100,11 @@ class DataLoader:
     shuffled `GroupBatchSampler`. `len()` is the number of batches an
     epoch. Samples are made in the sampler's order, so the datasets' random
     draws follow the JAX package's. `prefetch=0` makes each batch when it is
-    asked for."""
+    asked for. `rows=(lo, hi)` yields rows lo:hi of each batch (a rank's
+    rows of the global batch under data parallelism): every sample of the
+    batch is still made, in order, so that the datasets' draws, and so
+    these rows, equal those of one process's batch, as each JAX host walks
+    the global sampler and keeps its rows."""
 
     def __init__(self,
                  dataset,
@@ -109,7 +114,8 @@ class DataLoader:
                  two_stream: Optional[bool] = None,
                  steps_per_epoch: Optional[int] = None,
                  prefetch: int = 2,
-                 drop_last: bool = True):
+                 drop_last: bool = True,
+                 rows: Optional[Tuple[int, int]] = None):
         from .datasets.wrappers import ConcatDataset
         self.dataset = dataset
         self.samples_per_batch = samples_per_batch
@@ -127,14 +133,17 @@ class DataLoader:
             self.sampler = GroupBatchSampler(
                 len(dataset), samples_per_batch, shuffle, seed, drop_last)
         self.prefetch = prefetch
+        self.rows = rows
 
     def __len__(self):
         return len(self.sampler)
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        lo, hi = self.rows or (None, None)
+
         def gen():
             for batch_idx in self.sampler:
-                yield collate([self.dataset[i] for i in batch_idx])
+                yield collate([self.dataset[i] for i in batch_idx][lo:hi])
 
         if self.prefetch:
             return iter(_Prefetcher(gen, self.prefetch))

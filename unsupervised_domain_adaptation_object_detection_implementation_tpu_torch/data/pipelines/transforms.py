@@ -71,18 +71,27 @@ def _resize_pass(src: torch.Tensor, lo: np.ndarray, w: np.ndarray,
 
 
 def imresize(img: torch.Tensor, size_wh: Tuple[int, int]) -> torch.Tensor:
-    """Antialiased bilinear resize of an (H, W, C) tensor to (w, h):
-    horizontal pass into float32, vertical pass; a uint8 image is then
-    rounded half up and clipped back to uint8, a float one (after
-    `PhotoMetricDistortion`) stays float32."""
+    """Bilinear resize of an (H, W, C) tensor to (w, h), as the JAX
+    package's `_imresize` picks its path by the image's type.
+
+    uint8: the antialiased PIL-convention filter of its native resize,
+    horizontal pass into float32, vertical pass, rounded half up and
+    clipped back to uint8. float (after `PhotoMetricDistortion`): cv2's
+    `INTER_LINEAR`, a half-pixel bilinear with no antialias and edge
+    replication, in float32 (within ~2e-4 of the 255 range of cv2's
+    output: the two compute the taps' weights in another precision)."""
     tw, th = size_wh
+    if img.is_floating_point():
+        chw = img.float().permute(2, 0, 1)[None]
+        out = torch.nn.functional.interpolate(
+            chw, size=(th, tw), mode='bilinear', align_corners=False,
+            antialias=False)
+        return out[0].permute(1, 2, 0).contiguous()
     h, w = img.shape[:2]
     lo_x, w_x = _resize_taps(w, tw)
     lo_y, w_y = _resize_taps(h, th)
     tmp = _resize_pass(img.float(), lo_x, w_x, axis=1)
     out = _resize_pass(tmp, lo_y, w_y, axis=0)
-    if img.is_floating_point():
-        return out
     return torch.floor(out + 0.5).clamp(0, 255).to(torch.uint8)
 
 

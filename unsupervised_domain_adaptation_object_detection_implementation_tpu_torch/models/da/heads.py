@@ -12,7 +12,8 @@ features and f32 parameters to f32 in a module given no `dtype`; the GRL
 sits before that cast, so its gradient goes back in the tap's type.
 Module names are the flax ones, and where flax gives a conv or dense a bias
 by default, so has the port. Dropout is flax's: keep probability 1 - rate,
-kept values scaled by 1 / (1 - rate).
+kept values scaled by 1 / (1 - rate); under data parallelism a rank's mask
+is its rows of the global batch's (`parallel/batch.py:Dropout`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ...parallel.batch import Dropout
 from ..layers.attention import CBAM, MHSA, NonLocalBlock
 from ..layers.grl import gradient_reverse
 from ..layers.norm import BatchNorm
@@ -61,7 +63,7 @@ class GlobalAlignmentHead(nn.Module):
         self.bn5 = BatchNorm(c4)
         self.fc1 = Linear(c4, c4 // 2)
         self.fc2 = Linear(c4 // 2, 2)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) → (B, 2)."""
@@ -96,7 +98,7 @@ class SRMHead(nn.Module):
         self.conv2 = Conv2d(c4, c4 * 9, 3, padding=3)
         self.bn2 = BatchNorm(c4 * 9)
         self.fc = Linear(c4 * 9, 2)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W) → (B, 2)."""
@@ -120,7 +122,7 @@ class PixelAlignmentHead(nn.Module):
         if use_norm:
             self.bn1 = BatchNorm(channels)
             self.bn2 = BatchNorm(channels)
-            self.drop = nn.Dropout(dropout)
+            self.drop = Dropout(dropout)
         self.conv_out = Conv2d(channels, 1, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -164,7 +166,7 @@ class InstanceAlignmentHead(nn.Module):
         self.fc1 = Linear(feat_dim, hidden[0])
         self.fc2 = Linear(hidden[0], hidden[1])
         self.fc_out = Linear(hidden[1], 2)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, feat_dim) → (N, 2)."""

@@ -4,6 +4,10 @@
 
 Gradients flow through the GRL heads by default (`quirk_detach=False`);
 `quirk_detach=True` reproduces the reference's detached numbers.
+
+Under data parallelism each is the rank's share of the loss of the global
+batch (`parallel/batch.py`): means and normalizers over the global batch,
+and the grouped instance loss's k-means over its RoIs.
 """
 
 from __future__ import annotations
@@ -12,6 +16,9 @@ from typing import Callable
 
 import torch
 
+from ...parallel.batch import (all_reduce_sum, batch_mean, batch_total,
+                               data_parallel, gather_rows, replica_share,
+                               replicated)
 from ..losses import sigmoid_focal_loss, softmax_cross_entropy
 from .cluster import group_representatives
 
@@ -19,7 +26,7 @@ from .cluster import group_representatives
 def global_alignment_loss(logits: torch.Tensor, domain: torch.Tensor,
                           quirk_detach: bool = False) -> torch.Tensor:
     """CE between (B, 2) domain logits and the (B,) domain labels."""
-    loss = softmax_cross_entropy(logits, domain).mean()
+    loss = batch_mean(softmax_cross_entropy(logits, domain))
     return loss.detach() if quirk_detach else loss
 
 
@@ -56,7 +63,8 @@ def consistency_loss(img_logit_map: torch.Tensor, ins_logits: torch.Tensor,
     ins_prob = torch.sigmoid(ins_logits[..., 1])                     # (B, S)
     v = ins_valid.to(ins_prob.dtype)
     diff = (img_prob[:, None] - ins_prob) ** 2 * v
-    return torch.sqrt(diff.sum() / torch.clamp(v.sum(), min=1.0))
+    return replica_share(torch.sqrt(all_reduce_sum(diff.sum()) / torch.clamp(
+        batch_total(v.sum()), min=1.0)))
 
 
 def grouped_instance_loss(
@@ -76,7 +84,17 @@ def grouped_instance_loss(
     Args:
         bbox_feats: (B, S, D) shared-FC features; cls_scores (B, S, C+1);
         valid: (B, S) sampled-RoI validity; domain: (B,).
+
+    Under data parallelism every rank groups the RoIs of the global batch
+    (`gather_rows`) and returns its share of the term.
     """
+    if data_parallel():
+        args = (fore_head_apply, back_head_apply, gather_rows(bbox_feats),
+                gather_rows(cls_scores.detach()), gather_rows(valid),
+                gather_rows(domain), k, quirk_detach)
+        with replicated():
+            total = grouped_instance_loss(*args)
+        return replica_share(total)
     b, s, d = bbox_feats.shape
     feats = bbox_feats.reshape(-1, d)
     probs = torch.softmax(cls_scores, dim=-1).reshape(b * s, -1)

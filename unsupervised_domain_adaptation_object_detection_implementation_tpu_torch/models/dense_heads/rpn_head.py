@@ -17,6 +17,7 @@ from ...core.bbox.assigners import max_iou_assign
 from ...core.bbox.samplers import random_sample
 from ...core.bbox.transforms import bbox2delta, clip_boxes, delta2bbox
 from ...core.post.nms import NEG_INF, nms, topk_stable
+from ...parallel.batch import batch_total
 from ...utils.registry import HEADS
 from ..layers.precision import Conv2d
 from ..losses import binary_cross_entropy, smooth_l1_loss
@@ -72,7 +73,8 @@ def rpn_loss(cls_logits: torch.Tensor,
              ) -> Dict[str, torch.Tensor]:
     """Batched RPN loss: assign anchors inside each image, sample
     `num_samples`, BCE on the sampled anchors and smooth-L1 on the
-    positives, both summed per image and averaged over the sampled count.
+    positives, both summed per image and averaged over the sampled count
+    (the global batch's under data parallelism, `parallel/batch.py`).
 
     Args:
         cls_logits: (B, H, W, A); reg_preds: (B, H, W, A*4).
@@ -115,7 +117,7 @@ def rpn_loss(cls_logits: torch.Tensor,
     counts = chosen.sum(-1)
     w = torch.ones((b,), dtype=cls_l.dtype, device=cls_l.device) \
         if loss_weight_mask is None else loss_weight_mask.to(cls_l.dtype)
-    avg = torch.clamp((counts * w).sum(), min=1.0)
+    avg = torch.clamp(batch_total((counts * w).sum()), min=1.0)
     return dict(loss_rpn_cls=(cls_l * w).sum() / avg,
                 loss_rpn_bbox=(reg_l * w).sum() / avg)
 

@@ -34,6 +34,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ...parallel.batch import (batch_total, data_parallel, gather_rows,
+                               replica_share, replicated)
 from ...utils.registry import DETECTORS
 from ..backbones.da_resnet import VARIANT_TAPS, DAResNet
 from ..da.heads import InstanceAlignmentHead
@@ -157,7 +159,7 @@ class DAFasterRCNN(FasterRCNN):
             v = valid.float()
             ce = softmax_cross_entropy(ins_logits, dom_t) * v
             losses['local_da_loss'] = w.local * ce.sum() / torch.clamp(
-                v.sum(), min=1.0)
+                batch_total(v.sum()), min=1.0)
             if image_maps:
                 losses['consist_loss'] = w.consistency * consistency_loss(
                     image_maps[0], ins_logits, valid, domain)
@@ -167,7 +169,15 @@ class DAFasterRCNN(FasterRCNN):
         """MAF's fg/bg split instance CE without k-means grouping: each RoI
         is foreground when its softmax background probability is at most
         0.5; the fore and back heads see every RoI, and each CE is averaged
-        over its own valid RoIs."""
+        over its own valid RoIs. The heads' non-local blocks attend over
+        every RoI of the batch, so under data parallelism every rank runs
+        them on the global batch's RoIs and returns its share."""
+        if data_parallel():
+            args = (gather_rows(shared_feat), gather_rows(cls.detach()),
+                    gather_rows(valid), gather_rows(domain))
+            with replicated():
+                total = self._split_plain_loss(*args)
+            return replica_share(total)
         b, s, d = shared_feat.shape
         probs = torch.softmax(cls, dim=-1)
         is_fg = (1.0 - probs[..., -1]) >= 0.5

@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...parallel.batch import batch_moments
+
 
 class FrozenBatchNorm(nn.Module):
     """y = x * mul + off with mul = scale / sqrt(var + eps) and
@@ -47,7 +49,9 @@ class BatchNorm(nn.Module):
     of the OLD running value (0.99 here, torch's 0.01); the running variance
     takes the biased batch variance, computed as E[x²] − E[x]² clamped at 0
     (flax's fast variance); the statistics and the normalisation are in f32.
-    Channels are dim 1; every other dim is reduced.
+    Channels are dim 1; every other dim is reduced, and under data
+    parallelism over the global batch (`parallel/batch.py:batch_moments`),
+    so the running statistics move alike on every rank.
     """
 
     def __init__(self, features: int, momentum: float = 0.99,
@@ -66,8 +70,8 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = [d for d in range(x.dim()) if d != 1]
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            mean, mean_sq = batch_moments(xf, dims)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

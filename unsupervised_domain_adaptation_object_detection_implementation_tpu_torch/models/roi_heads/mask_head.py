@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.roi_align import batched_roi_align
+from ...parallel.batch import batch_total
 from ...utils.registry import HEADS
 from ..layers.precision import Conv2d
 from ..losses import binary_cross_entropy
@@ -164,7 +165,8 @@ def mask_loss(mask_logits: torch.Tensor,
               labels: torch.Tensor,
               pos_weight: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-pixel BCE on each RoI's own-class channel, weighted by
-    `pos_weight` (B, S) and summed over max(Σ pos_weight · h · w, 1).
+    `pos_weight` (B, S) and summed over max(Σ pos_weight · h · w, 1), the
+    sum over the global batch under data parallelism.
     Labels clip to [0, K - 1], so a background row reads class K - 1 at
     weight 0."""
     b, s, h, w, c = mask_logits.shape
@@ -174,5 +176,5 @@ def mask_loss(mask_logits: torch.Tensor,
     loss = binary_cross_entropy(sel, targets,
                                 weight=pos_weight[..., None, None],
                                 reduction='sum')
-    denom = torch.clamp(pos_weight.sum() * h * w, min=1.0)
+    denom = torch.clamp(batch_total(pos_weight.sum()) * h * w, min=1.0)
     return dict(loss_mask=loss / denom)

@@ -17,6 +17,7 @@ from ...core.bbox.samplers import random_sample
 from ...core.bbox.transforms import bbox2delta, delta2bbox
 from ...core.post.nms import multiclass_nms
 from ...ops.roi_align import batched_roi_align, batched_roi_align_fpn
+from ...parallel.batch import batch_total
 from ..losses import binary_cross_entropy, cross_entropy, smooth_l1_loss
 
 
@@ -108,7 +109,8 @@ def bbox_loss(cls_scores: torch.Tensor,
               loss_weight_mask: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
     """Classification over the sampled RoIs and smooth-L1 over the
-    positives, both averaged over the sampled count (the sigmoid
+    positives, both averaged over the sampled count (the global batch's
+    under data parallelism; the sigmoid
     classifier's also over its C + 1 columns). `loss_weight_mask` (B,)
     masks supervision to source images."""
     if cfg.reg_loss != 'l1':
@@ -122,11 +124,12 @@ def bbox_loss(cls_scores: torch.Tensor,
     if cfg.use_sigmoid_cls:
         cls_l = binary_cross_entropy(cls_scores, sampled.labels,
                                      weight=w[..., None], reduction='sum')
-        cls_l = cls_l / torch.clamp(w.sum() * cls_scores.shape[-1], min=1.0)
+        cls_l = cls_l / torch.clamp(batch_total(w.sum()) * cls_scores.shape[-1],
+                                    min=1.0)
     else:
         cls_l = cross_entropy(cls_scores, sampled.labels, weight=w,
                               reduction='sum')
-        cls_l = cls_l / torch.clamp(w.sum(), min=1.0)
+        cls_l = cls_l / torch.clamp(batch_total(w.sum()), min=1.0)
 
     if reg_preds.shape[-1] == 4:
         reg_sel = reg_preds
@@ -140,7 +143,7 @@ def bbox_loss(cls_scores: torch.Tensor,
         w_img[:, None]
     reg_l = smooth_l1_loss(reg_sel, sampled.reg_targets,
                            weight=pos_w[..., None], reduction='sum')
-    reg_l = reg_l / torch.clamp(w.sum(), min=1.0)
+    reg_l = reg_l / torch.clamp(batch_total(w.sum()), min=1.0)
     return dict(loss_cls=cls_l, loss_bbox=reg_l)
 
 

@@ -8,6 +8,15 @@ Writes the resolved config to `<work-dir>/config.py`, then runs
 `apis.train_detector`. `load_from` and `resume_from` in the config count
 where the flags are absent. `--device` defaults to cuda and raises without
 a card.
+
+Several ranks: `--n-devices k` starts k ranks from this one process (one
+card each; gloo ranks with `--device cpu`); `--launcher jax` makes this
+process one rank of a process group, which a `dist_params` block in the
+config (or `--cfg-options dist_params.coordinator_address=host:port
+dist_params.num_processes=N dist_params.process_id=i`) or the
+`MASTER_ADDR` / `RANK` / `WORLD_SIZE` environment describes; a `mesh =
+dict(data=-1, model=k)` block splits the box head over k ranks. Rank 0
+alone writes the config and prints the work dir.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ import argparse
 import os
 
 from ..apis.train import train_detector
+from ..parallel.multihost import process_index
 from ..utils.config import Config, parse_option_value
 
 
@@ -34,7 +44,9 @@ def parse_args(argv=None):
     p.add_argument('--max-epochs', type=int, default=None)
     p.add_argument('--n-devices', type=int, default=None)
     p.add_argument('--launcher', choices=['none', 'jax'], default='none',
-                   help='multi-process training: not ported, raises')
+                   help="'jax': this process is one rank of a process group "
+                        '(a dist_params block, or MASTER_ADDR/RANK/'
+                        'WORLD_SIZE)')
     p.add_argument('--cfg-options', nargs='+', default=[],
                    help='dotted config overrides: key=value')
     p.add_argument('--device', default='cuda',
@@ -59,7 +71,9 @@ def main(argv=None):
     work_dir = args.work_dir or os.path.join(
         'work_dirs', os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(os.path.join(work_dir, 'config.py'))
+    if process_index(cfg.get('dist_params')) == 0:
+        cfg.dump(os.path.join(work_dir, 'config.py'))
+        print(f'[train] work dir: {work_dir}')
     metrics = train_detector(
         cfg, work_dir,
         resume_from=args.resume_from or cfg.get('resume_from'),
