@@ -77,13 +77,13 @@ def test_polygon_fill_equals_pillow(kind, size):
 
 
 # outlines that return to an earlier vertex (after the cast to int), so
-# that three or more edges meet there: the port's corner rule differs from
-# Pillow's in these pixels (ROADMAP.md, Queue 3)
+# that three or more edges meet there: where the port's corner rule still
+# differs from Pillow's, it is in these pixels (ROADMAP.md, Queue 3)
 REVISITING = [
-    ([(7, 2), (-2, 0), (6, -1), (7, 2), (2, 0), (7, 1)], 1),
+    ([(7, 2), (-2, 0), (6, -1), (7, 2), (2, 0), (7, 1)], 0),
     ([(5, 1), (1, 6), (2, 9), (8, 0), (3, 1), (5, 1), (8, 2)], 1),
     ([(0, 4), (8, 5), (5, 2), (0, 4), (5, 5), (7, 0), (4, 0), (0, 0),
-      (0, 9)], 4)]
+      (0, 9)], 0)]
 
 
 @pytest.mark.parametrize('case', range(len(REVISITING)))
@@ -98,27 +98,48 @@ def test_polygon_fill_where_the_outline_revisits_a_vertex(case):
     assert set(np.nonzero(diff)[0].tolist()) <= revisited
 
 
-def test_polygon_fill_on_fuzzed_revisiting_outlines():
-    """300 seeded integer outlines of 3-7 vertices on a 12x12 raster, each
-    with 1-2 earlier vertices visited again: the fill equals Pillow's on
-    all but 4 of them, which differ in 9 pixels in all, each on a
-    revisited vertex's row (the open fault of `ROADMAP.md` Queue 3,
-    pinned)."""
-    rs = np.random.RandomState(0)
-    n, outlines, pixels = 12, 0, 0
-    for _ in range(300):
-        pts = [tuple(int(v) for v in rs.randint(0, n + 1, 2))
-               for _ in range(rs.randint(3, 8))]
-        for _ in range(rs.randint(1, 3)):
-            pts.insert(rs.randint(0, len(pts) + 1),
-                       pts[rs.randint(0, len(pts))])
+def _fuzz_residue(seed, count, lo, hi, n, every, max_vertices):
+    """(outlines, pixels) where the fill differs from Pillow's among `count`
+    seeded integer outlines of 3 to `max_vertices` vertices with
+    coordinates in [lo, hi]
+    on an n x n raster, every `every`-th of them with 1-2 earlier vertices
+    visited again; each differing pixel must lie on a revisited vertex's
+    row."""
+    rs = np.random.RandomState(seed)
+    outlines, pixels = 0, 0
+    for t in range(count):
+        pts = [tuple(int(v) for v in rs.randint(lo, hi + 1, 2))
+               for _ in range(rs.randint(3, max_vertices + 1))]
+        if t % every == 0:
+            for _ in range(rs.randint(1, 3)):
+                pts.insert(rs.randint(0, len(pts) + 1),
+                           pts[rs.randint(0, len(pts))])
         diff = _port_fill(np.float32(pts), n) != _pil_fill(np.float32(pts), n)
         if diff.any():
             outlines += 1
             pixels += int(diff.sum())
             revisited = {y for x, y in pts if pts.count((x, y)) > 1}
             assert set(np.nonzero(diff)[0].tolist()) <= revisited, pts
-    assert (outlines, pixels) == (4, 9)
+    return outlines, pixels
+
+
+def test_polygon_fill_on_fuzzed_revisiting_outlines():
+    """300 seeded integer outlines of 3-7 vertices on a 12x12 raster, each
+    with 1-2 earlier vertices visited again: the fill equals Pillow's on
+    all but 3 of them, which differ in 7 pixels in all, each on a
+    revisited vertex's row (the open fault of `ROADMAP.md` Queue 3,
+    pinned)."""
+    assert _fuzz_residue(0, 300, 0, 12, 12, every=1, max_vertices=7) == (3, 7)
+
+
+def test_polygon_fill_on_fuzzed_outlines_past_the_raster():
+    """1000 seeded integer outlines of 3-8 vertices with coordinates from
+    -1 to n + 1 on a 12x12 raster, every second one revisiting 1-2
+    earlier vertices: the fill equals Pillow's on all but 7 of them, 14
+    pixels in all, each on a revisited vertex's row (pinned with the open
+    fault of `ROADMAP.md` Queue 3)."""
+    assert _fuzz_residue(1, 1000, -1, 13, 12, every=2,
+                         max_vertices=8) == (7, 14)
 
 
 def _synth_polygon(rs, circle):

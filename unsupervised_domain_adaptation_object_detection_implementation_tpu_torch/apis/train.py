@@ -70,6 +70,9 @@ _ADVERSARIAL = {'DAFasterRCNN', 'DAFasterRCNN_Org', 'MAFasterRCNN',
 # detector types whose adversarial generator/discriminator game has its own
 # two-group step
 _GAN = {'CyDAFasterRCNN', 'CyCADA'}
+# detectors that train on one device only (their multi-rank step is not
+# ported: the semantic and global-context losses have no global-batch form)
+_ONE_DEVICE = {'CascadeRCNN', 'CascadeMaskRCNN', 'HTC', 'SCNet'}
 
 
 class Trainer(NamedTuple):
@@ -185,6 +188,8 @@ def init_trainer(config: Union[str, Config],
     axis."""
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
+    if layout is not None:
+        _refuse_ranks(cfg)
     spec = optimizer_spec(cfg, steps_per_epoch)
     model = build_detector(train_model_cfg(cfg), device='meta',
                            canvas=train_canvas(cfg))
@@ -213,12 +218,24 @@ def init_trainer(config: Union[str, Config],
     return Trainer(model, state, step, tx, spec, cfg, device)
 
 
-def _refuse_unported(cfg: Config, launcher):
+def _refuse_ranks(cfg: Config):
+    """Raise for a detector whose multi-rank step is not ported."""
+    if cfg.model.get('type') in _ONE_DEVICE:
+        raise NotImplementedError(
+            f"{cfg.model['type']} on several ranks: the cascade family's "
+            'multi-rank step is not ported (ROADMAP.md); train it on one '
+            'device')
+
+
+def _refuse_unported(cfg: Config, launcher, n_devices=None):
     """Raise on what the loop does not port, each with its reason, before
-    the loop makes its work dir: an unported compute type (float16) among
-    them."""
+    the loop makes its work dir: an unported compute type (float16) and a
+    multi-rank run of a one-device detector among them."""
     if launcher not in (None, 'none', 'jax'):
         raise ValueError(f"launcher={launcher!r}: 'jax' (or 'none')")
+    if n_devices not in (None, 1) or launcher == 'jax' or \
+            cfg.get('dist_params'):
+        _refuse_ranks(cfg)
     if cfg.get('load_submodule'):
         raise NotImplementedError('a `load_submodule` block: grafting a '
                                   'donor checkpoint into a submodule is not '
@@ -348,7 +365,7 @@ def train_detector(cfg: Config, work_dir: str,
     (the one-device layout, the model axis's shards gathered), and
     `resume_from` restores any checkpoint onto any layout. Submodule
     grafting raises NotImplementedError."""
-    _refuse_unported(cfg, launcher)
+    _refuse_unported(cfg, launcher, n_devices)
     if n_devices not in (None, 1) and not dist.is_initialized():
         kwargs = dict(resume_from=resume_from, load_from=load_from,
                       pretrained_backbone=pretrained_backbone, seed=seed,

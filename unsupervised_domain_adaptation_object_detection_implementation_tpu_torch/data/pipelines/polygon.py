@@ -15,12 +15,12 @@ Pillow's scanline fill, as this module reproduces it:
   their greatest y (at most the image height): on each, every edge whose
   rows include y gives its crossing, in edge order, and twice on its last
   row unless that row is the last of all;
-- corners: an edge's crossing that lands on a whole number on a sloped
-  edge, in an even place of the row's list, is checked against every other
-  edge of the same slope sign that starts (or ends) on this row with it at
-  the same rounded x; the first such edge that also crosses the next row
-  (the previous one on the last row) settles it: when both crossings there
-  lie more than a pixel to one side, the crossing moves next to them
+- corners: a sloped edge's crossing that lands on a whole number (and is
+  not doubled) is checked against each earlier edge of the table (in edge
+  order) of the same slope sign that starts (or ends) on this row with it
+  at the same rounded x; the first such edge that also crosses the next
+  row (the previous one on the last row) settles it: when both crossings
+  there lie more than a pixel to one side, the crossing moves next to them
   (round(max) + 1, or round(min) - 1);
 - the sorted crossings pair up, and each pair (a, b) fills the pixels from
   round-half-up(a) to round-half-down(b) (in float32, a half away from
@@ -28,9 +28,10 @@ Pillow's scanline fill, as this module reproduces it:
 
 `tests/test_torch_coco_masks.py` holds it to Pillow bit for bit on the
 polygons the datasets carry (squares, 16-gons, convex and concave
-polygons, polygons past the box, narrow boxes); polygons whose outline
-runs back over itself, so that three or more edges meet at one vertex,
-can differ from Pillow in a few corner pixels (`ROADMAP.md`).
+polygons, polygons past the box, narrow boxes); outlines that run back over
+themselves, so that three or more edges meet at one vertex, can still
+differ from Pillow in a few pixels of that vertex's row: 3 of 300 and 7
+of 1000 fuzzed outlines there (`ROADMAP.md` Queue 3).
 """
 
 from __future__ import annotations
@@ -108,14 +109,13 @@ def fill_polygon(img: np.ndarray, points: np.ndarray) -> np.ndarray:
     active = (rows[:, None] >= e_lo[None]) & (rows[:, None] <= e_hi[None])
     twice = active & (rows[:, None] == e_hi[None]) & (rows[:, None] < y_hi)
     count = np.cumsum(active.astype(np.int64) + twice, axis=1)
-    cand = (active & ~twice & (dx[None] != 0) & (count % 2 == 0)
-            & (xs == np.floor(xs)))
+    cand = active & ~twice & (dx[None] != 0) & (xs == np.floor(xs))
     for r, i in zip(*np.nonzero(cand)):
         y = int(rows[r])
         xi = xs[r, i]
         starts = y == e_lo[i]
-        for k in range(len(dx)):
-            if k == i or (dx[i] > 0 and dx[k] <= 0) or \
+        for k in range(i):
+            if (dx[i] > 0 and dx[k] <= 0) or \
                     (dx[i] < 0 and dx[k] >= 0):
                 continue
             if not ((starts and y == e_lo[k]) or

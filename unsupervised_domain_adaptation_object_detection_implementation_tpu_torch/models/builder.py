@@ -41,9 +41,9 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.registry import DETECTORS
 from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
-from .detectors import (cyda_faster_rcnn,  # noqa: F401 (register)
-                        da_faster_rcnn, faster_rcnn, faster_rcnn_fpn,
-                        mask_rcnn, mask_rcnn_c4)
+from .detectors import (cascade_rcnn,  # noqa: F401 (register)
+                        cyda_faster_rcnn, da_faster_rcnn, faster_rcnn,
+                        faster_rcnn_fpn, htc, mask_rcnn, mask_rcnn_c4, scnet)
 from .detectors.faster_rcnn import AnchorConfig
 from .layers.precision import compute_dtype
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
@@ -69,6 +69,10 @@ _REFERENCE_DETECTOR_MAP = {
                                               group_k=10)),
     'CyDAFasterRCNN': ('CyDAFasterRCNN', {}),
     'CyCADA': ('CyDAFasterRCNN', dict(pretraining=True)),
+    'CascadeRCNN': ('CascadeRCNN', {}),
+    'CascadeMaskRCNN': ('CascadeMaskRCNN', {}),
+    'HTC': ('HTC', {}),
+    'SCNet': ('SCNet', {}),
 }
 
 # reference bbox_head.loss_bbox types that decode boxes (the IoU family);

@@ -52,16 +52,15 @@ class FPNRPNHead(RPNHead):
         return cls, reg
 
 
-@DETECTORS.register_module()
-class FasterRCNNFPN(nn.Module):
-    """Trunk → FPN → RPN over P2–P6 → proposals → multi-level RoIAlign →
-    Shared2FC → multiclass NMS. Only the plain FPN neck, the default ResNet
-    trunk, RoIAlign with the single-level-per-RoI extractor and the random
-    sampler are ported; the other choices raise."""
+class FPNProposer(nn.Module):
+    """Trunk → FPN → RPN over P2–P6 → proposals: what the FPN two-stage
+    detectors share (`FasterRCNNFPN` and its subclasses, the cascade
+    family), with their serving surface (`extract_feat`, `rpn_outputs`,
+    `roi_maps`, `roi_extract`). Only the plain FPN neck and the default
+    ResNet (or Swin) trunk are ported; the other choices raise."""
 
     def __init__(self, num_classes: int = 80, backbone_depth: int = 50,
                  backbone_cfg: Any = None, neck_type: str = 'FPN',
-                 roi_extractor_type: str = 'single', roi_layer: str = 'align',
                  frozen_stages: int = 1,
                  rpn_strides: Tuple[int, ...] = (4, 8, 16, 32, 64),
                  rpn_train_cfg: RPNTrainConfig = RPNTrainConfig(),
@@ -69,31 +68,15 @@ class FasterRCNNFPN(nn.Module):
                      nms_pre=4096, max_per_img=1000),
                  rpn_test_cfg: ProposalConfig = ProposalConfig(
                      nms_pre=4096, max_per_img=1000),
-                 roi_train_cfg: RoITrainConfig = RoITrainConfig(
-                     use_sigmoid_cls=False),
-                 roi_test_cfg: RoITestConfig = RoITestConfig(),
                  neck_channels: int = 256,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        if roi_layer != 'align':
-            raise NotImplementedError(f'roi_layer {roi_layer!r}: only '
-                                      "RoIAlign ('align') is ported")
-        if roi_extractor_type != 'single':
-            raise NotImplementedError(
-                f'roi_extractor_type {roi_extractor_type!r}: only the '
-                "single-level-per-RoI extractor ('single') is ported")
-        if roi_train_cfg.sampler_type != 'random':
-            raise NotImplementedError(
-                f'sampler {roi_train_cfg.sampler_type!r}: only the random '
-                'sampler is ported')
         self.num_classes = num_classes
         self.rpn_strides = tuple(rpn_strides)
         self.rpn_train_cfg = rpn_train_cfg
         self.rpn_proposal_cfg = rpn_proposal_cfg
         self.rpn_test_cfg = rpn_test_cfg
-        self.roi_train_cfg = roi_train_cfg
-        self.roi_test_cfg = roi_test_cfg
         self.backbone = build_trunk(
             backbone_cfg, depth=backbone_depth, strides=(1, 2, 2, 2),
             dilations=(1, 1, 1, 1), out_indices=(0, 1, 2, 3),
@@ -102,9 +85,6 @@ class FasterRCNNFPN(nn.Module):
             neck_type, in_channels=self.backbone.stage_channels(),
             out_channels=neck_channels, num_outs=5, dtype=dtype)
         self.rpn_head = FPNRPNHead(in_channels=neck_channels, dtype=dtype)
-        self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
-                                           in_channels=neck_channels,
-                                           dtype=dtype)
 
     def extract_feat(self, image: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """image (B, H, W, 3) → the pyramid's (B, C, H_l, W_l) levels P2–P6
@@ -143,6 +123,85 @@ class FasterRCNNFPN(nn.Module):
         return extract_roi_feats_fpn(feats_nhwc, rois, ROI_STRIDES,
                                      out_size=out_size, flatten=flatten)
 
+    def _proposals(self, batch, generator, sampler_priorities):
+        """The trunk, the RPN loss and the proposals from the detached RPN
+        outputs, each a `step/...` range → (feats, losses, proposals,
+        prop_valid)."""
+        pri = sampler_priorities or {}
+        with record_function('step/trunk_and_neck'):
+            feats = self.extract_feat(batch['image'].float())
+        with record_function('step/rpn_head_and_loss'):
+            cls, reg, anchors = self.rpn_outputs(feats)
+            losses = rpn_loss(cls, reg, anchors, batch['gt_bboxes'],
+                              batch['gt_valid'], batch['img_shape'],
+                              self.rpn_train_cfg, priorities=pri.get('rpn'),
+                              generator=generator)
+        with torch.no_grad(), record_function('step/proposals'):
+            proposals, _, prop_valid = rpn_proposals(
+                cls.detach(), reg.detach(), anchors, batch['img_shape'],
+                self.rpn_proposal_cfg)
+        return feats, losses, proposals, prop_valid
+
+    def _test_proposals(self, batch):
+        """Serving: the pyramid and the proposals of `rpn_test_cfg`."""
+        feats = self.extract_feat(batch['image'].float())
+        cls, reg, anchors = self.rpn_outputs(feats)
+        proposals, _, prop_valid = rpn_proposals(
+            cls, reg, anchors, batch['img_shape'], self.rpn_test_cfg)
+        return feats, proposals, prop_valid
+
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = True,
+                generator: Optional[torch.Generator] = None,
+                sampler_priorities: Optional[Dict[str, torch.Tensor]] = None):
+        """The loss dict with `train`, else `predict`."""
+        if train:
+            return self.loss(batch, generator, sampler_priorities)
+        return self.predict(batch)
+
+
+@DETECTORS.register_module()
+class FasterRCNNFPN(FPNProposer):
+    """Trunk → FPN → RPN over P2–P6 → proposals → multi-level RoIAlign →
+    Shared2FC → multiclass NMS. Only the plain FPN neck, the default ResNet
+    trunk, RoIAlign with the single-level-per-RoI extractor and the random
+    sampler are ported; the other choices raise."""
+
+    def __init__(self, num_classes: int = 80, backbone_depth: int = 50,
+                 backbone_cfg: Any = None, neck_type: str = 'FPN',
+                 roi_extractor_type: str = 'single', roi_layer: str = 'align',
+                 frozen_stages: int = 1,
+                 rpn_strides: Tuple[int, ...] = (4, 8, 16, 32, 64),
+                 rpn_train_cfg: RPNTrainConfig = RPNTrainConfig(),
+                 rpn_proposal_cfg: ProposalConfig = ProposalConfig(
+                     nms_pre=4096, max_per_img=1000),
+                 rpn_test_cfg: ProposalConfig = ProposalConfig(
+                     nms_pre=4096, max_per_img=1000),
+                 roi_train_cfg: RoITrainConfig = RoITrainConfig(
+                     use_sigmoid_cls=False),
+                 roi_test_cfg: RoITestConfig = RoITestConfig(),
+                 neck_channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        if roi_layer != 'align':
+            raise NotImplementedError(f'roi_layer {roi_layer!r}: only '
+                                      "RoIAlign ('align') is ported")
+        if roi_extractor_type != 'single':
+            raise NotImplementedError(
+                f'roi_extractor_type {roi_extractor_type!r}: only the '
+                "single-level-per-RoI extractor ('single') is ported")
+        if roi_train_cfg.sampler_type != 'random':
+            raise NotImplementedError(
+                f'sampler {roi_train_cfg.sampler_type!r}: only the random '
+                'sampler is ported')
+        super().__init__(num_classes, backbone_depth, backbone_cfg,
+                         neck_type, frozen_stages, rpn_strides,
+                         rpn_train_cfg, rpn_proposal_cfg, rpn_test_cfg,
+                         neck_channels, dtype)
+        self.roi_train_cfg = roi_train_cfg
+        self.roi_test_cfg = roi_test_cfg
+        self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
+                                           in_channels=neck_channels,
+                                           dtype=dtype)
+
     def loss(self, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              sampler_priorities: Optional[Dict[str, torch.Tensor]] = None
@@ -155,25 +214,14 @@ class FasterRCNNFPN(nn.Module):
         """`loss`'s RPN and box losses; returns (losses, sampled RoIs, the
         RoI extractor's NHWC levels)."""
         pri = sampler_priorities or {}
-        with record_function('step/trunk_and_neck'):
-            feats = self.extract_feat(batch['image'].float())
-        with record_function('step/rpn_head_and_loss'):
-            cls, reg, anchors = self.rpn_outputs(feats)
-            losses = rpn_loss(cls, reg, anchors, batch['gt_bboxes'],
-                              batch['gt_valid'], batch['img_shape'],
-                              self.rpn_train_cfg, priorities=pri.get('rpn'),
-                              generator=generator)
-        with torch.no_grad():
-            with record_function('step/proposals'):
-                proposals, _, prop_valid = rpn_proposals(
-                    cls.detach(), reg.detach(), anchors, batch['img_shape'],
-                    self.rpn_proposal_cfg)
-            with record_function('step/roi_sampling'):
-                sampled = sample_rois(
-                    proposals, prop_valid, batch['gt_bboxes'],
-                    batch['gt_labels'], batch['gt_valid'], self.num_classes,
-                    self.roi_train_cfg, priorities=pri.get('rcnn'),
-                    generator=generator)
+        feats, losses, proposals, prop_valid = self._proposals(
+            batch, generator, sampler_priorities)
+        with torch.no_grad(), record_function('step/roi_sampling'):
+            sampled = sample_rois(
+                proposals, prop_valid, batch['gt_bboxes'],
+                batch['gt_labels'], batch['gt_valid'], self.num_classes,
+                self.roi_train_cfg, priorities=pri.get('rcnn'),
+                generator=generator)
         maps = self.roi_maps(feats)
         with record_function('step/roi_align_fwd'):
             roi_feats = self.roi_extract(maps, sampled.rois)
@@ -192,10 +240,7 @@ class FasterRCNNFPN(nn.Module):
 
     def _detect(self, batch):
         """`predict`'s detections and the RoI extractor's NHWC levels."""
-        feats = self.extract_feat(batch['image'].float())
-        cls, reg, anchors = self.rpn_outputs(feats)
-        proposals, _, prop_valid = rpn_proposals(
-            cls, reg, anchors, batch['img_shape'], self.rpn_test_cfg)
+        feats, proposals, prop_valid = self._test_proposals(batch)
         maps = self.roi_maps(feats)
         return roi_head_predict(
             self.bbox_head, maps, proposals,
@@ -204,11 +249,3 @@ class FasterRCNNFPN(nn.Module):
             target_stds=self.roi_train_cfg.target_stds,
             use_sigmoid_cls=self.roi_train_cfg.use_sigmoid_cls,
             cfg=self.roi_test_cfg, roi_extractor=self.roi_extract), maps
-
-    def forward(self, batch: Dict[str, torch.Tensor], train: bool = True,
-                generator: Optional[torch.Generator] = None,
-                sampler_priorities: Optional[Dict[str, torch.Tensor]] = None):
-        """The loss dict with `train`, else `predict`."""
-        if train:
-            return self.loss(batch, generator, sampler_priorities)
-        return self.predict(batch)

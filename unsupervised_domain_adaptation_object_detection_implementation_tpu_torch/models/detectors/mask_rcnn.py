@@ -45,6 +45,8 @@ class MaskRCNN(FasterRCNNFPN):
     the plain mask predictor or its normed form are ported; seesaw raises,
     as do the parts `FasterRCNNFPN` refuses."""
 
+    with_mask = True
+
     def __init__(self, num_classes: int = 80, loss_cls: str = 'softmax',
                  normed_mask: bool = False, mask_size: int = 28, **kwargs):
         if loss_cls != 'softmax':

@@ -87,6 +87,8 @@ class MaskRCNNC4(nn.Module):
     box and mask heads. Only the default ResNet trunk is ported; a
     `backbone_cfg` raises."""
 
+    with_mask = True
+
     def __init__(self, num_classes: int = 80, backbone_depth: int = 50,
                  backbone_cfg: Any = None, frozen_stages: int = 1,
                  anchor_cfg: AnchorConfig = AnchorConfig(),

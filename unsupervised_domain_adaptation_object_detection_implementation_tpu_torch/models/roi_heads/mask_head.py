@@ -71,7 +71,7 @@ class FCNMaskHead(nn.Module):
         x = roi_feats.reshape(-1, s, s, c).permute(0, 3, 1, 2)
         for i in range(self.num_convs):
             x = torch.relu(getattr(self, f'conv{i}')(x))
-        x = _upsample_2x(x)
+        x = upsample_bilinear_2x(x)
         x = torch.relu(self.upsample_conv(x))
         if self.normed_predictor:
             w = self.conv_logits_kernel
@@ -85,7 +85,7 @@ class FCNMaskHead(nn.Module):
         return x.permute(0, 2, 3, 1).reshape(*lead, 2 * s, 2 * s, -1)
 
 
-def _upsample_2x(x: torch.Tensor) -> torch.Tensor:
+def upsample_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
     """`jax.image.resize(..., 'bilinear')` at 2x of an NCHW map: half-pixel
     centres, the edge taps renormalised, which equals clamping the source
     coordinate. In f32 one pass; in bf16 the rows first, then the columns,

@@ -1,21 +1,24 @@
-"""Mask R-CNN trained from COCO-format polygon data on a CUDA card: the
-synth row and the full-width COCO configs, with their times.
+"""Mask detectors trained from COCO-format polygon data on a CUDA card:
+the synth rows and the full-width COCO configs, with their times.
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.coco_mask_runs \
-        synth [--epochs 15] [--out build/coco_runs/synth.json]
+        synth [--config configs/da/synth_htc_smoke.py] [--epochs 15] \
+        [--out build/coco_runs/synth.json]
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.coco_mask_runs \
         coco [--out build/coco_runs/coco.json]
 
 `synth` trains configs/da/synth_mask_smoke.py (Mask R-CNN R18-FPN, 56²
 box-frame rasters, batch 8 of 128x192, SGD lr 0.01, an evaluation every 5
-epochs) through `apis.train_detector` on the committed polygon split
+epochs), or with `--config` one of the configs built on it
+(`SYNTH_CONFIGS`: the HTC and SCNet rows, semantic branch off, 128 RoIs
+an image), through `apis.train_detector` on the committed polygon split
 (tests/data/synth_seg: 200 training images; its 50 test images for the
 evaluations), for the config's 15 epochs unless `--epochs` says, and
 reports each evaluation's metrics (box AP50 by the loop's VOC protocol),
-the mask loss of every epoch (the mean over its steps, and the last
-step's, which the log records), the wall time, and the step and loader
-medians: each step ends in a synchronize, and the loader time is the wait
-from one step's end to the next one's start.
+the mask loss (`mask_loss_of`) of every epoch (the mean over its steps,
+and the last step's, which the log records), the wall time, and the step
+and loader medians: each step ends in a synchronize, and the loader time
+is the wait from one step's end to the next one's start.
 
 `coco` trains each full-width COCO config (Mask R-CNN R50-FPN 1x, its
 mstrain-poly 3x variant through `RepeatDataset` and the 'range'
@@ -53,6 +56,8 @@ from . import test as test_cli
 
 SEG_DIR = 'tests/data/synth_seg'
 SYNTH_MASK = 'configs/da/synth_mask_smoke.py'
+SYNTH_CONFIGS = (SYNTH_MASK, 'configs/da/synth_htc_smoke.py',
+                 'configs/da/synth_scnet_smoke.py')
 COCO_CONFIGS = (
     'configs/mask_rcnn/mask_rcnn_r50_fpn_1x.py',
     'configs/mask_rcnn/mask_rcnn_r50_fpn_mstrain-poly_3x.py',
@@ -70,6 +75,13 @@ def card_line(device: str) -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def mask_loss_of(metrics: Dict[str, float]) -> float:
+    """The mask loss of a step's metrics: `loss_mask`, or for a cascade
+    the sum of its stages' weighted `s<i>.loss_mask`."""
+    return float(sum(v for k, v in metrics.items()
+                     if k.split('.')[-1] == 'loss_mask'))
 
 
 def write_subset(split: str, n: int, path: str) -> str:
@@ -164,9 +176,9 @@ def _train(cfg: Config, work_dir: str, device: str):
 
 
 def run_synth(work_dir: str, epochs: int, device: str,
-              extra: Dict[str, object]) -> dict:
-    """The synth Mask R-CNN row (see the module docstring)."""
-    cfg = Config.fromfile(SYNTH_MASK)
+              extra: Dict[str, object], config: str = SYNTH_MASK) -> dict:
+    """A synth row (see the module docstring)."""
+    cfg = Config.fromfile(config)
     cfg.merge_from_dict(dict(split_options({
         'data.train': f'{SEG_DIR}/train.json',
         'data.val': f'{SEG_DIR}/test.json',
@@ -177,15 +189,15 @@ def run_synth(work_dir: str, epochs: int, device: str,
         recs = [json.loads(line) for line in f]
     steps = len(timer.step_ms) // epochs
     return dict(
-        config=SYNTH_MASK, epochs=epochs, steps_per_epoch=steps,
+        config=config, epochs=epochs, steps_per_epoch=steps,
         images_per_step=cfg.data['samples_per_gpu'], wall_s=wall_s,
         val_epochs=[r['epoch'] for r in recs if r['mode'] == 'val'],
         evals=timer.evals,
         loss_mask_epoch_mean=[
-            float(np.mean([m['loss_mask'] for m in
+            float(np.mean([mask_loss_of(m) for m in
                            timer.metrics[e * steps:(e + 1) * steps]]))
             for e in range(epochs)],
-        loss_mask_logged=[r['loss_mask'] for r in recs
+        loss_mask_logged=[mask_loss_of(r) for r in recs
                           if r['mode'] == 'train'],
         step_ms_median=float(np.median(timer.step_ms)),
         step_ms_min=float(np.min(timer.step_ms)),
@@ -219,7 +231,7 @@ def run_coco(work_dir: str, config: str, device: str,
         *[f'{k}={v!r}' for k, v in extra.items()]])
     return dict(config=config, steps=len(timer.step_ms),
                 step_ms=timer.step_ms,
-                loss_mask=[m['loss_mask'] for m in timer.metrics],
+                loss_mask=[mask_loss_of(m) for m in timer.metrics],
                 train_s=train_s, eval_s=timer.eval_s, evals=timer.evals,
                 test_s=time.perf_counter() - t0, bbox=bbox,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30
@@ -229,6 +241,8 @@ def run_coco(work_dir: str, config: str, device: str,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('what', choices=('synth', 'coco'))
+    ap.add_argument('--config', default=SYNTH_MASK, choices=SYNTH_CONFIGS,
+                    help='the synth row to train (synth only)')
     ap.add_argument('--epochs', type=int, default=15)
     ap.add_argument('--work-dir', default='build/coco_runs')
     ap.add_argument('--out', default=None,
@@ -245,7 +259,8 @@ def main(argv=None):
     run_dir = os.path.join(args.work_dir, 'run')
     shutil.rmtree(run_dir, ignore_errors=True)
     if args.what == 'synth':
-        results = [run_synth(run_dir, args.epochs, args.device, extra)]
+        results = [run_synth(run_dir, args.epochs, args.device, extra,
+                             args.config)]
     else:
         results = []
         for config in COCO_CONFIGS:

@@ -13,9 +13,11 @@ requests of two seeded 1024x2048 images, and reports:
   preprocess (pipeline on the card), trunk (with the FPN neck for the FPN
   detectors), RPN head (over every level), proposals (top-k, decode, NMS),
   RoI head (RoIAlign + box head + decode + multiclass NMS; C4's box head
-  runs res5 first), for the Mask R-CNN detectors the mask branch on the
-  detections (RoIAlign, mask head, own-class sigmoid), and inside the RoI
-  head RoIAlign and the box head alone;
+  runs res5 first; the cascade family's three stages, with HTC's and
+  SCNet's semantic and global-context heads), for the mask detectors the
+  mask branch on the detections (RoIAlign, mask head(s), own-class
+  sigmoid), and inside the RoI head RoIAlign and the (first) box head
+  alone;
 - the whole `inference_detector` call per request, and the same request
   split into pipeline, `predict`, and copy-back with per-class packing;
 - a `torch.profiler` trace of whole requests: device busy time (sum of
@@ -51,20 +53,31 @@ def _stages(model, image, results=None):
     surface they share (`rpn_outputs`, `roi_maps`, `roi_extract`, and
     `roi_box_head` where the box head is more than `bbox_head`): trunk (with
     the neck), RPN head, proposals, RoI head, and `mask_predict` where the
-    detector has a mask head. `results`, where given, receives the RoI
-    head's detections and the mask branch's `masks`."""
+    detector has a mask head. The cascade family's RoI head is its
+    `roi_context` (semantic map, global context) and `cascade_detect`, and
+    its split times the first stage's box head. `results`, where given,
+    receives the RoI head's detections and the mask branch's `masks`."""
     img_shape = image['img_shape']
-    head = getattr(model, 'roi_box_head', model.bbox_head)
+    cascade = hasattr(model, 'cascade_detect')
+    head = model.bbox_heads[0] if cascade else \
+        getattr(model, 'roi_box_head', model.bbox_head)
     dets = {} if results is None else results
 
     def proposals(out):
         feats, cls, reg, anchors = out
         props, _, valid = rpn_proposals(cls, reg, anchors, img_shape,
                                         model.rpn_test_cfg)
-        return model.roi_maps(feats), props, valid
+        maps = model.roi_maps(feats)
+        if cascade:
+            return maps, props, valid, model.roi_context(feats)
+        return maps, props, valid
 
     def roi_head(out):
-        feats, props, valid = out
+        feats, props, valid = out[:3]
+        if cascade:
+            dets.update(model.cascade_detect(feats, out[3], props, valid,
+                                             img_shape))
+            return out
         dets.update(roi_head_predict(
             head, feats, props, valid, img_shape, model.num_classes,
             target_stds=model.roi_train_cfg.target_stds,
@@ -73,17 +86,17 @@ def _stages(model, image, results=None):
         return out
 
     def mask_branch(out):
-        dets['masks'] = model.mask_predict(out[0], dets)
+        dets['masks'] = model.mask_predict(out[0], dets, *out[3:])
         return out
 
     def roi_align(out):
-        feats, props, _ = out
+        feats, props = out[:2]
         return model.roi_extract(feats, props)
 
     stages = [('trunk', lambda _: model.extract_feat(image['image'])),
               ('rpn_head', lambda feats: (feats, *model.rpn_outputs(feats))),
               ('proposals', proposals), ('roi_head', roi_head)]
-    if hasattr(model, 'mask_head'):
+    if getattr(model, 'with_mask', False):
         stages.append(('mask_branch', mask_branch))
     return stages + [('roi_head.roi_align', roi_align),
                      ('roi_head.bbox_head', head)]

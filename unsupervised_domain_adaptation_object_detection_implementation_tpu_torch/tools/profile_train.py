@@ -167,8 +167,8 @@ def main(argv=None):
     batch = demo_batch(b=args.batch, h=args.size[0], w=args.size[1],
                        num_classes=trainer.model.num_classes, seed=args.seed,
                        device=args.device,
-                       mask_size=args.mask_size if hasattr(
-                           trainer.model, 'mask_head') else None)
+                       mask_size=args.mask_size if getattr(
+                           trainer.model, 'with_mask', False) else None)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     for _ in range(2):                                       # warm-up
         state, _ = trainer.step(state, batch, gen)

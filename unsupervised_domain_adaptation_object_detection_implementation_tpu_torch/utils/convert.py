@@ -20,10 +20,14 @@
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
 `backbone.trunk.layer1.0.conv1.weight` (and Swin's `stage0/block1`
-becomes `stage0.block1`). Leaves with no counterpart in the
+becomes `stage0.block1`). The cascade family's per-stage heads keep the
+JAX names as modules of their own (`bbox_head_0` … `bbox_head_2`,
+`mask_head_<i>`), as do HTC's and SCNet's `semantic_head`, `glbctx_head`,
+`relay_head` (its Dense rows stay in (y, x, C) order, the order the port
+reads them in) and `scnet_mask_head`. Leaves with no counterpart in the
 model are returned, not dropped silently; for every detector the port
-has (each DA variant, CyDA and CyCADA, the Swin trunk included) there
-are none.
+has (each DA variant, CyDA and CyCADA, the Swin trunk and the cascade
+family included) there are none.
 """
 
 from __future__ import annotations
