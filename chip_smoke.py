@@ -267,6 +267,18 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    on its checkpoint, in build/coco_runs/ (emptied after). Last, a tiny
    R18 HTC and SCNet card vs CPU: detections within 1e-3, masks within
    1e-4, one train step's losses within 1e-4 relative.
+24. gate 3 — `tools/synth_da_runs.py` on the card: the `daf` row (the
+   gate-3 config as published, R18-DC5 DAF + clip + EMA, batch 4 + 4 of
+   128x192) on the committed synth set (tests/data/synth_da: 200 clear +
+   200 foggy training images) cut to 1 epoch of its 50 steps, with an
+   evaluation of the 50 foggy test images after it. Every step launches
+   the pair's forward and backward once and every eval batch the forward
+   once; every logged loss is finite and the AP50 a number in [0, 1].
+   Prints the epoch's wall time and the step and loader-wait medians. On
+   the RoIs a step of the trained model samples from a loader batch, the
+   pair is held to the plain version and timed (entries
+   `roi_align_pyramid_{fwd,bwd}/gate3`; the forward on an eval batch's
+   proposals). Work dir build/synth_da_runs/, emptied after.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -325,6 +337,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.to
     DA_train
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
     coco_mask_runs
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
+    synth_da_runs
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
     test as test_cli
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
@@ -2013,14 +2027,16 @@ def _time_fed_steps(cfg, trainer, state):
     return out
 
 
-def loop_kernels(maps, proposals, model, batch):
+def loop_kernels(maps, proposals, model, batch, names=(FWD_LOOP, BWD_LOOP)):
     """The pair against the plain version in the loop's regime (R18-DC5,
     C=512, 8x12 map, 8 images): forward on an eval batch's proposals
     (timed), forward and backward on the RoIs a loop step of `model`
-    samples from `batch` (backward timed). Returns the two entries."""
+    samples from `batch` (backward timed). Returns the two entries, named
+    `names`."""
+    fwd_name, bwd_name = names
     torch.backends.cuda.matmul.allow_tf32 = False
     b, h, w, c = maps.shape
-    worst = _check(FWD_LOOP, dc5_fwd(maps, proposals),
+    worst = _check(fwd_name, dc5_fwd(maps, proposals),
                    roi_align.batched_roi_align_plain(
                        maps, proposals, 1 / 16, flatten=True), TOL_F32,
                    f'on an eval batch\'s {tuple(proposals.shape[:2])} '
@@ -2029,24 +2045,24 @@ def loop_kernels(maps, proposals, model, batch):
     plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
         maps, proposals, 1 / 16, flatten=True), 3, warmup=1)
     nbytes, ops = roi_align_work(proposals, h, w, c)
-    fwd = _entry(FWD_LOOP, 63, nbytes, ops, max_abs_err=worst, ms=ms,
+    fwd = _entry(fwd_name, 63, nbytes, ops, max_abs_err=worst, ms=ms,
                  plain_ms=plain_ms)
-    log(f'kernels: {FWD_LOOP} f32 {tuple(maps.shape)} x '
+    log(f'kernels: {fwd_name} f32 {tuple(maps.shape)} x '
         f'{b}x{proposals.shape[1]} proposals: {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms, bound {fwd["bound_ms"]:.4f} ms '
         f'({fwd["bound_by"]}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)')
     feats, sampled, gen = sample_step_rois(model, batch, 3)
     rois = sampled.rois
     got = dc5_fwd(feats, rois)
-    worst = max(worst, _check(FWD_LOOP, got, roi_align.batched_roi_align_plain(
+    worst = max(worst, _check(fwd_name, got, roi_align.batched_roi_align_plain(
         feats, rois, 1 / 16, flatten=True), TOL_F32,
         f'on a step\'s {tuple(rois.shape[:2])} sampled RoIs'))
     fwd['max_abs_err'] = worst
     grad = torch.randn(got.shape, generator=gen, device='cuda')
-    worst = _check(BWD_LOOP, dc5_bwd(grad, rois, tuple(feats.shape)),
+    worst = _check(bwd_name, dc5_bwd(grad, rois, tuple(feats.shape)),
                    plain_backward(feats, rois, grad, True), TOL_F32,
                    'on sampled RoIs')
-    return [fwd, time_dc5_backward(BWD_LOOP, feats, rois, grad, worst)]
+    return [fwd, time_dc5_backward(bwd_name, feats, rois, grad, worst)]
 
 
 def phase_loop(card, kernels):
@@ -3872,6 +3888,65 @@ def phase_cascade(card, kernels):
                                f'{got} times, expected {want}')
 
 
+# ---- gate 3: the synth clear→foggy rows' tool on the committed set --------
+
+GATE3_DIR = 'build/synth_da_runs'
+FWD_GATE3, BWD_GATE3 = ('roi_align_pyramid_fwd/gate3',
+                        'roi_align_pyramid_bwd/gate3')
+
+
+def phase_gate3(card, kernels):
+    """The `daf` row of `tools/synth_da_runs.py` cut to 1 epoch, with an
+    evaluation after it (see the module docstring)."""
+    shutil.rmtree(GATE3_DIR, ignore_errors=True)
+    work = f'{GATE3_DIR}/daf'
+    extra = ['evaluation.interval=1']
+    cfg = train_cli.load_config(train_cli.parse_args(
+        synth_da_runs.row_argv('daf', work, extra=extra)))
+    val_images = len(build_dataset(cfg.data['val'], 'cpu'))
+    eval_batches = -(-val_images // cfg.data['samples_per_gpu'])
+    FWD.launches = BWD.launches = 0
+    report = synth_da_runs.run_row('daf', work, 'cuda', max_epochs=1,
+                                   extra=extra)
+    torch.cuda.synchronize()
+    fwd, bwd = FWD.launches, BWD.launches
+    steps = report['steps_per_epoch']
+    if steps != 50 or (fwd, bwd) != (steps + eval_batches, steps):
+        raise RuntimeError(f'gate 3: {steps} steps and {eval_batches} eval '
+                           f'batches launched the pair {fwd} / {bwd} times')
+    train = [r for r in report['records'] if r['mode'] == 'train']
+    val = [r for r in report['records'] if r['mode'] == 'val']
+    losses = {k: v for r in train for k, v in r.items()
+              if k.startswith('loss') or k.endswith('_loss')}
+    if len(losses) < 5 or not all(math.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f'gate 3: logged losses {train}')
+    if len(val) != 1 or not (math.isfinite(val[0]['AP50'])
+                             and 0.0 <= val[0]['AP50'] <= 1.0):
+        raise RuntimeError(f'gate 3: evaluations {val}')
+    log(f'gate 3: tools/synth_da_runs.py daf on {synth_da_runs.DATA_DIR} '
+        f'(200 clear + 200 foggy, batch 4 + 4 of 128x192) 1 epoch of '
+        f'{steps} steps in {report["wall_s"]:.2f} s with an eval of '
+        f'{val_images} foggy test images ({report["eval_s"][0]:.2f} s): '
+        f'step median {report["step_ms_median"]:.3f} ms (min '
+        f'{report["step_ms_min"]:.3f}), loader wait median '
+        f'{report["loader_wait_ms_median"]:.3f} ms; AP50 {val[0]["AP50"]}; '
+        f'epoch means {report["loss_epoch_means"][1]}; launches fwd {fwd} '
+        f'bwd {bwd} [{card}]')
+    bundle = init_detector(cfg, device='cuda', checkpoint=f'{work}/ckpt_1')
+    val_ds = build_dataset(cfg.data['val'], 'cuda')
+    batch = next(iter(DataLoader(build_dataset(cfg.data['train'], 'cuda'),
+                                 cfg.data['samples_per_gpu'], seed=0,
+                                 prefetch=0)))
+    entries = loop_kernels(*eval_proposals(bundle.model, val_ds),
+                           bundle.model, batch, (FWD_GATE3, BWD_GATE3))
+    for e in entries:
+        e['launches'] = fwd if e['name'] == FWD_GATE3 else bwd
+    kernels += entries
+    del bundle, batch
+    _free()
+    shutil.rmtree(GATE3_DIR)
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3901,6 +3976,7 @@ def main():
     phase_coco_mask(card, kernels)
     phase_parallel(card, kernels, loop_records)
     phase_cascade(card, kernels)
+    phase_gate3(card, kernels)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

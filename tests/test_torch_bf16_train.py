@@ -32,7 +32,7 @@ import torch
 from .test_torch_fpn import FPN_CFG, TINY, regression_init
 from .test_torch_mask import C4_CFG, C4_TINY
 from .test_torch_train import _demo_batch, _jax_fixed_samplers, _no_dropout
-from .torch_port_utils import JAX_PKG, PORT_PKG, fill_variables
+from .torch_port_utils import JAX_PKG, NARROW_OPTIONS, PORT_PKG, fill_variables
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DC5_TINY = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
@@ -358,7 +358,8 @@ def test_profile_train_takes_the_compute_type(tmp_path):
     result = tprofile.main([
         '--device', 'cpu', '--size', '64', '96', '--steps', '1',
         '--config', DC5_TINY, '--cfg-options', 'model.dtype=bfloat16',
-        '--out', str(tmp_path / 'profile.json')])
+        *NARROW_OPTIONS, '--out', str(tmp_path / 'profile.json')])
     assert result['dtype'] == 'torch.bfloat16'
-    assert result['cfg_options'] == ['model.dtype=bfloat16']
+    assert result['cfg_options'] == ['model.dtype=bfloat16',
+                                     *NARROW_OPTIONS]
     assert 'backward' in result['stage_host_ms']

@@ -3,8 +3,8 @@ annotations (class tables, crowd, RLE and ignored instances), its 'bbox'
 (COCO protocol) and 'mAP' evaluations on seeded detections,
 `RepeatDataset`, and whole loader epochs of the synth Mask R-CNN config
 and of the Swin ms-crop-3x pipeline (`AutoAugment` with `RandomCrop`) on
-the committed polygon split; plus the check that the committed split is
-what the generator writes."""
+the committed polygon split; plus the checks that the committed polygon
+split and the synth clear→foggy set are what the generator writes."""
 
 import importlib
 import json
@@ -20,6 +20,7 @@ from .torch_port_utils import JAX_PKG, PORT_PKG
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SEG = ROOT / 'tests/data/synth_seg'
+SYNTH_DA = ROOT / 'tests/data/synth_da'
 MASK_CONFIG = 'configs/da/synth_mask_smoke.py'
 MS_CROP_CONFIG = 'configs/swin/mask_rcnn_swin-t-p4-w7_fpn_ms-crop-3x.py'
 
@@ -51,13 +52,22 @@ def _configs(path, over):
     return cfgs
 
 
-def test_committed_split_is_what_the_generator_writes(tmp_path):
+@pytest.fixture(scope='module')
+def generated(tmp_path_factory):
+    """The generator's default call with `--coco-masks` (seed 0, 200 train
+    and 50 test images a domain): the polygon split and both VOC domains,
+    whose `shapes_clear/` equals the call without the flag's."""
     pytest.importorskip('PIL')
+    out = tmp_path_factory.mktemp('generated')
     subprocess.run([sys.executable,
                     str(ROOT / 'tools/misc/make_synthetic_da_dataset.py'),
-                    str(tmp_path), '--coco-masks'], check=True,
+                    str(out), '--coco-masks'], check=True,
                    capture_output=True)
-    made = tmp_path / 'shapes_seg'
+    return out
+
+
+def test_committed_split_is_what_the_generator_writes(generated):
+    made = generated / 'shapes_seg'
     for split in ('train.json', 'test.json'):
         assert json.loads((made / split).read_text()) == \
             json.loads((SEG / split).read_text())
@@ -65,6 +75,28 @@ def test_committed_split_is_what_the_generator_writes(tmp_path):
         assert (made / 'images' / name).read_bytes() == \
             (SEG / 'images' / name).read_bytes()
     assert len(list((SEG / 'images').iterdir())) == 250
+
+
+@pytest.mark.parametrize('domain', ['shapes_clear', 'shapes_foggy'])
+def test_committed_synth_da_set_is_what_the_generator_writes(generated,
+                                                             domain):
+    """tests/data/synth_da: each domain's image lists and annotations
+    equal the generator's, three named JPEGs are byte-equal, and the
+    domain holds 250 JPEGs."""
+    made, ours = generated / domain, SYNTH_DA / domain
+    for split in ('train', 'test'):
+        txt = f'ImageSets/Main/{split}.txt'
+        assert (made / txt).read_text() == (ours / txt).read_text()
+    xmls = sorted(p.name for p in (made / 'Annotations').iterdir())
+    assert xmls == sorted(p.name for p in (ours / 'Annotations').iterdir())
+    assert len(xmls) == 250
+    for name in xmls:
+        assert (made / 'Annotations' / name).read_bytes() == \
+            (ours / 'Annotations' / name).read_bytes(), name
+    for name in ('train_0000.jpg', 'train_0137.jpg', 'test_0049.jpg'):
+        assert (made / 'JPEGImages' / name).read_bytes() == \
+            (ours / 'JPEGImages' / name).read_bytes(), name
+    assert len(list((ours / 'JPEGImages').glob('*.jpg'))) == 250
 
 
 def _write_json(path, cats, anns, n_images=3):

@@ -1,5 +1,5 @@
 """The port's loop on COCO data: `tools.train` of the synth Mask R-CNN
-config on 8 committed polygon images (one step, an evaluation, a
+config on 2 committed polygon images (one step, an evaluation, a
 checkpoint) and `tools.test --eval bbox` on its checkpoint; and the Swin
 ms-crop-3x config, whose `PackDetInputs` keeps no masks, failing on its
 first train step in both packages."""
@@ -31,14 +31,14 @@ ttools_train = importlib.import_module(f'{PORT_PKG}.tools.train')
 ttools_test = importlib.import_module(f'{PORT_PKG}.tools.test')
 
 
-def _eight_images(tmp_path):
-    """The committed test half cut to its first 8 images."""
+def _eight_images(tmp_path, n=8):
+    """The committed test half cut to its first `n` images."""
     coco = json.loads((SEG / 'test.json').read_text())
-    keep = {im['id'] for im in coco['images'][:8]}
-    coco['images'] = coco['images'][:8]
+    keep = {im['id'] for im in coco['images'][:n]}
+    coco['images'] = coco['images'][:n]
     coco['annotations'] = [a for a in coco['annotations']
                            if a['image_id'] in keep]
-    path = tmp_path / 'eight.json'
+    path = tmp_path / f'first_{n}.json'
     path.write_text(json.dumps(coco))
     return str(path)
 
@@ -49,18 +49,19 @@ def _split_options(ann, splits=('train', 'val', 'test')):
 
 
 def test_mask_rcnn_trains_and_tests_from_its_coco_config(tmp_path):
-    """One epoch of one step of 8 images with their 56² rasters (32 RoIs
-    an image for the heads, to keep the CPU step short), an evaluation
-    after it with the loop's 'mAP' whatever `evaluation.metric` says (as
-    the JAX loop), a checkpoint, then `tools.test --eval bbox` on it with
-    the COCO-protocol keys."""
-    ann = _eight_images(tmp_path)
+    """One epoch of one step of 2 images with their 56² rasters (32 RoIs
+    an image for the heads; the config's 8 images a step at full width
+    run on the card), an evaluation of the 2 images after it with the
+    loop's 'mAP' whatever `evaluation.metric` says (as the JAX loop), a
+    checkpoint, then `tools.test --eval bbox` on it with the
+    COCO-protocol keys."""
+    ann = _eight_images(tmp_path, 2)
     wd = tmp_path / 'work'
     metrics = ttools_train.main([
         MASK_CONFIG, '--work-dir', str(wd), '--device', 'cpu',
         '--cfg-options', *_split_options(ann), 'runner.max_epochs=1',
         'evaluation.interval=1', 'evaluation.metric=bbox',
-        'model.roi_train_cfg.num_samples=32'])
+        'model.roi_train_cfg.num_samples=32', 'data.samples_per_gpu=2'])
     assert set(metrics) == {'AP50', 'mAP'}
     log = [json.loads(line) for line in open(wd / 'train_log.jsonl')]
     train = [r for r in log if r['mode'] == 'train']

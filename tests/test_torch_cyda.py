@@ -24,7 +24,7 @@ import torch
 from .test_torch_da import _train_both
 from .test_torch_da_variants import (DET_KEYS, HW, _demo_batch, _jax_model,
                                      _jax_variables)
-from .torch_port_utils import JAX_PKG, PORT_PKG
+from .torch_port_utils import JAX_PKG, NARROW_OPTIONS, PORT_PKG
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
@@ -292,8 +292,9 @@ def _argv(work_dir, *extra):
         paths += [f'{key}.ann_file={ROOT}/tests/data/{sub}/ImageSets/Main/'
                   f'{split}.txt', f'{key}.img_prefix={ROOT}/tests/data/{sub}/']
     return [TINY, '--work-dir', str(work_dir), '--device', 'cpu',
-            '--cfg-options', *paths, 'model.type=CyDAFasterRCNN',
-            'model.gen_blocks=1', 'ema.momentum=0.9995', *extra]
+            '--cfg-options', *paths, *NARROW_OPTIONS,
+            'model.type=CyDAFasterRCNN', 'model.gen_blocks=1',
+            'ema.momentum=0.9995', *extra]
 
 
 def test_gan_loop_trains_checkpoints_and_resumes_bit_for_bit(tmp_path):

@@ -30,7 +30,8 @@ import torch
 from .test_torch_da import _train_both
 from .test_torch_train import (_close_scaled, _converted, _demo_batch,
                                _jax_fixed_samplers, _no_dropout, _tiny_cfg)
-from .torch_port_utils import JAX_PKG, PORT_PKG, fill_variables
+from .torch_port_utils import (JAX_PKG, PARITY_THREADS, PORT_PKG, fill_variables,
+                               torch_threads)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
@@ -279,7 +280,9 @@ def two_steps(det_type, seed, port_options=None, jax_fields=None,
         for _ in range(2):
             jstate, m = jstep(jstate, jbatch, jax.random.PRNGKey(3))
             jmetrics.append(jax.tree_util.tree_map(np.asarray, m))
-            state, m = trainer.step(state, tbatch, sampler_priorities=pri)
+            with torch_threads(PARITY_THREADS):
+                state, m = trainer.step(state, tbatch,
+                                        sampler_priorities=pri)
             tmetrics.append({k: v.numpy() for k, v in m.items()})
         jstate = jax.device_get(jstate)
     return dict(jstate=jstate, jmetrics=jmetrics, trainer=trainer,

@@ -48,12 +48,14 @@ def _image(h, w, seed, smooth):
 
 
 def test_the_fixtures_are_there():
-    """The 48 synth JPEGs, the 250 of the polygon split, the 7 VOC-style
-    fixtures and one synth image at Cityscapes size (2048x1024)."""
+    """The 48 synth JPEGs, the 500 of the synth clear→foggy set, the 250
+    of the polygon split, the 7 VOC-style fixtures and one synth image at
+    Cityscapes size (2048x1024)."""
     assert len([f for f in FILES if 'synth_da_small' in f]) == 48
+    assert len([f for f in FILES if 'synth_da/' in f]) == 500
     assert len([f for f in FILES if 'synth_seg' in f]) == 250
     assert 'tests/data/jpeg_2048x1024/synth_clear.jpg' in FILES
-    assert len(FILES) == 306
+    assert len(FILES) == 806
 
 
 @pytest.mark.parametrize('path', FILES)

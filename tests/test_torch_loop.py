@@ -1,7 +1,8 @@
 """The port's train → evaluate → checkpoint → resume → serve loop on the
-CPU: two epochs of `tools.DA_train` on the tiny fixture config, resume from
-its first checkpoint, `init_detector(checkpoint=...)`, `load_from`, the
-iteration-based runner, and the options the single-device loop refuses.
+CPU: two epochs of `tools.DA_train` on the tiny fixture config (its RPN
+and box head narrowed, `NARROW`), resume from its first checkpoint,
+`init_detector(checkpoint=...)`, `load_from`, the iteration-based runner,
+and the options the single-device loop refuses.
 The log records are held to the JAX package's format: the keys its loop
 writes (`mode`, `epoch`, `iter` and its train step's metrics, which
 `jax.eval_shape` of that step gives without compiling it)."""
@@ -10,6 +11,7 @@ import importlib
 import json
 import os
 import pathlib
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from .torch_port_utils import JAX_PKG, PORT_PKG
+from .torch_port_utils import JAX_PKG, NARROW, NARROW_OPTIONS, PORT_PKG
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
@@ -47,10 +49,11 @@ def _paths():
 
 
 def _argv(work_dir, *extra):
-    """The CLI's arguments on the tiny config, with the EMA of the gate-3
-    config (the tiny one keeps none)."""
+    """The CLI's arguments on the tiny config, narrowed (`NARROW`), with
+    the EMA of the gate-3 config (the tiny one keeps none)."""
     return [TINY, '--work-dir', str(work_dir), '--device', 'cpu',
-            '--cfg-options', *_paths(), 'ema.momentum=0.9995', *extra]
+            '--cfg-options', *_paths(), *NARROW_OPTIONS,
+            'ema.momentum=0.9995', *extra]
 
 
 def _snapshot(d):
@@ -125,9 +128,10 @@ def run(tmp_path_factory):
         ttrain.restore_train_state = orig_restore
         ttrain.init_trainer = orig_init
     log = [json.loads(line) for line in open(wd / 'train_log.jsonl')]
-    return dict(wd=wd, metrics=metrics, first=first, log=log, saved=saved,
-                evals=evals, restored=restored, resumed=resumed,
-                probe=probe, draws=draws)
+    yield dict(wd=wd, metrics=metrics, first=first, log=log, saved=saved,
+               evals=evals, restored=restored, resumed=resumed,
+               probe=probe, draws=draws)
+    shutil.rmtree(wd)           # its checkpoints, when the module is done
 
 
 def _jax_metric_keys():
@@ -176,7 +180,9 @@ def test_checkpoints_and_their_meta(run):
     assert sorted(d for d in os.listdir(wd) if d.startswith('ckpt_')) == \
         ['ckpt_1', 'ckpt_2']
     for e in (1, 2):
-        assert ckpt_io.load_meta(str(wd / f'ckpt_{e}')) == \
+        meta = ckpt_io.load_meta(str(wd / f'ckpt_{e}'))
+        assert set(meta) == {'epoch', 'classes', 'loader'}
+        assert dict(epoch=meta['epoch'], classes=meta['classes']) == \
             dict(epoch=e, classes=['car', 'person'])
         payload = run['saved'][e]
         assert payload['step'] == payload['opt_count'] == 3 * e
@@ -241,6 +247,21 @@ def test_resumed_steps_draw_what_the_uninterrupted_run_drew(run):
                for i in range(6) for j in range(i))
 
 
+def test_resumed_epoch_trains_on_the_uninterrupted_runs_batches(run):
+    """ckpt_1 holds the loader's random state at the end of epoch 1 (the
+    two-stream sampler's and each dataset's), so the resumed epoch 2 draws
+    the batches the uninterrupted run drew: its records, losses and
+    evaluation equal that run's epoch 2, and so do the saved states."""
+    assert set(run['saved'][1]) >= {'params', 'momentum'}
+    meta = ckpt_io.load_meta(str(run['wd'] / 'ckpt_1'))
+    assert set(meta['loader']) == {'sampler', 'pools', 'datasets'}
+    assert len(meta['loader']['datasets']) == 2
+    resumed = run['log'][len(run['first']):]
+    assert resumed == [r for r in run['first'] if r['epoch'] == 2]
+    _equal_payload(ckpt_io.load_checkpoint(str(run['wd'] / 'ckpt_2')),
+                   run['saved'][2])
+
+
 def test_dropout_draws_follow_the_seed_and_the_step(run):
     """Dropout draws from torch's default generator, which torch seeds
     anew in each process; the loop seeds it at every step from the seed and
@@ -273,7 +294,9 @@ def test_init_detector_from_a_checkpoint_serves_the_ema_model(run):
     in-memory model with the EMA parameters, as the last evaluation (the
     resumed run's, which wrote ckpt_2 last) ran it; and its classes come
     from the checkpoint."""
-    bundle = tinference.init_detector(TINY, device='cpu',
+    cfg = tconfig.Config.fromfile(TINY)
+    cfg.merge_from_dict(NARROW)
+    bundle = tinference.init_detector(cfg, device='cpu',
                                       checkpoint=str(run['wd'] / 'ckpt_2'))
     assert bundle.classes == ('car', 'person')
     ref = run['evals'][-1]['pred']
@@ -286,11 +309,13 @@ def test_init_detector_from_a_checkpoint_serves_the_ema_model(run):
 
 def test_tools_test_evaluates_a_checkpoint(run):
     metrics = ttools_test.main([TINY, str(run['wd'] / 'ckpt_2'), '--device',
-                                'cpu', '--cfg-options', *_paths()])
+                                'cpu', '--cfg-options', *_paths(),
+                                *NARROW_OPTIONS])
     assert set(metrics) == {'AP50', 'mAP'}
     with pytest.raises(NotImplementedError, match='test-time'):
         ttools_test.main([TINY, str(run['wd'] / 'ckpt_2'), '--device', 'cpu',
-                          '--flip-tta', '--cfg-options', *_paths()])
+                          '--flip-tta', '--cfg-options', *_paths(),
+                          *NARROW_OPTIONS])
 
 
 def test_load_from_loads_weights_and_no_optimizer_state(run, tmp_path,

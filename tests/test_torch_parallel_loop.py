@@ -33,6 +33,7 @@ import importlib
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -41,7 +42,7 @@ import pytest
 import torch
 
 from . import torch_parallel_workers as workers
-from .torch_port_utils import PORT_PKG, SYNTH_DATA
+from .torch_port_utils import NARROW, NARROW_OPTIONS, PORT_PKG, SYNTH_DATA
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
@@ -198,13 +199,17 @@ def _records(wd):
 @pytest.fixture(scope='module')
 def loop(tmp_path_factory):
     """The runs, on 2 torch threads (1 a rank of `n_devices=2`): beside
-    the suite's other workers more threads only contend."""
+    the suite's other workers more threads only contend. Their five
+    checkpoints (3.4 GB) go when the module's tests are done."""
+    tmp = tmp_path_factory.mktemp('ploop')
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        return _loop_runs(tmp_path_factory.mktemp('ploop'))
+        runs = _loop_runs(tmp)
     finally:
         torch.set_num_threads(prev)
+    yield runs
+    shutil.rmtree(tmp)
 
 
 def _loop_runs(tmp):
@@ -289,10 +294,10 @@ def test_launcher_jax_with_dist_params_and_a_model_axis(tmp_path):
     data rank and a model axis of two: the box head's pair is split over
     the processes, and the records equal one process's."""
     opts = ['runner.max_epochs=1', 'lr_config.warmup_iters=2',
-            'log_config.interval=1']
+            'log_config.interval=1', *NARROW_OPTIONS]
     ref_cfg = tconfig.Config.fromfile(TINY)
-    ref_cfg.merge_from_dict({'runner.max_epochs': 1,
-                             'lr_config.warmup_iters': 2})
+    ref_cfg.merge_from_dict(dict(NARROW, **{'runner.max_epochs': 1,
+                                            'lr_config.warmup_iters': 2}))
     prev = torch.get_num_threads()
     torch.set_num_threads(1)
     try:

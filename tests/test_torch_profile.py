@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-PORT_PKG = 'unsupervised_domain_adaptation_object_detection_implementation_tpu_torch'
+from .torch_port_utils import NARROW_OPTIONS, PORT_PKG
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 profile_train = importlib.import_module(f'{PORT_PKG}.tools.profile_train')
@@ -24,6 +25,7 @@ def test_profile_train_reads_every_stage_of_the_step(tmp_path):
     result = profile_train.main([
         '--device', 'cpu', '--size', '64', '96', '--steps', '1',
         '--config', str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py'),
+        '--cfg-options', *NARROW_OPTIONS,
         '--out', str(tmp_path / 'profile.json')])
     assert list(result['stage_host_ms']) == [
         'trunk_and_grl_heads', 'rpn_head_and_loss', 'proposals',

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from .torch_port_utils import JAX_PKG, PORT_PKG, fill_variables
+from .torch_port_utils import (JAX_PKG, PARITY_THREADS, PORT_PKG, fill_variables,
+                               torch_threads)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
@@ -494,7 +495,9 @@ def two_steps():
         for _ in range(2):
             jstate, m = jstep(jstate, jbatch, jax.random.PRNGKey(3))
             jmetrics.append(jax.tree_util.tree_map(np.asarray, m))
-            state, m = trainer.step(state, tbatch, sampler_priorities=pri)
+            with torch_threads(PARITY_THREADS):
+                state, m = trainer.step(state, tbatch,
+                                        sampler_priorities=pri)
             tmetrics.append({k: v.numpy() for k, v in m.items()})
     return dict(jstate=jax.device_get(jstate), jmetrics=jmetrics,
                 trainer=trainer, state=state, tmetrics=tmetrics,

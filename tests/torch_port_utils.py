@@ -6,10 +6,43 @@ same numpy values.
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
+import torch
 
 JAX_PKG = 'unsupervised_domain_adaptation_object_detection_implementation_tpu'
 PORT_PKG = 'unsupervised_domain_adaptation_object_detection_implementation_tpu_torch'
+
+
+def _share_the_cores():
+    """Under pytest-xdist, torch's intra-op pool gets this worker's share
+    of the cores: with its default (every core in every worker) six
+    workers on eight cores run a port test several times slower than one
+    does alone (the pools' threads spin against each other)."""
+    workers = int(os.environ.get('PYTEST_XDIST_WORKER_COUNT', '1'))
+    if workers > 1:
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+
+
+_share_the_cores()
+
+# the intra-op thread count at which the tiny DAF-family train steps were
+# held to JAX: their updates sit within 1e-4 of scale of JAX's at 8
+# threads, while 1, 2 or 4 reorder the CPU's sums and miss by up to 10x
+PARITY_THREADS = 8
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op pool at `n` threads inside the block."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 def fill_variables(shapes, rs: np.random.RandomState, path=()):
@@ -53,6 +86,13 @@ def edge_case_rois(rs: np.random.RandomState, b: int, n: int, h: int, w: int,
     rois[:, :k] = special[:k]
     return rois.astype(np.float32)
 
+
+# the tiny fixture's RPN conv and box head narrowed (from 2048 and 1024
+# wide) for the tests that hold the port against itself: a step, and a
+# checkpoint (params, momentum and EMA: 680 → 207 MB), cost a fraction
+NARROW = {'model.rpn_head.feat_channels': 64,
+          'model.roi_head.bbox_head.fc_out_channels': 64}
+NARROW_OPTIONS = [f'{k}={v}' for k, v in NARROW.items()]
 
 SYNTH_CONFIG = 'configs/da/faster_rcnn_r18_synth_shapes.py'
 SYNTH_DATA = 'tests/data/synth_da_small'

@@ -26,7 +26,7 @@ from ..data.pipelines.transforms import (Compose, LoadImageFromFile,
                                          Normalize, PackDetInputs, Pad,
                                          Resize)
 from ..models.builder import build_detector, train_canvas
-from ..models.weight_init import init_random_weights_
+from ..models.weight_init import head_scale_of, init_random_weights_
 from ..utils.checkpoint import load_checkpoint, load_meta, load_weights
 from ..utils.config import Config
 from ..utils.convert import load_jax_variables
@@ -77,7 +77,8 @@ def init_detector(config: Union[str, Config],
         load_jax_variables(model, variables)
     else:
         init_random_weights_(
-            model, torch.Generator(device=device).manual_seed(seed))
+            model, torch.Generator(device=device).manual_seed(seed),
+            head_scale_of(cfg))
     model.eval()
 
     img_scale = (1000, 600)

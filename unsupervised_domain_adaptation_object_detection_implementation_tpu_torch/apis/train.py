@@ -42,14 +42,16 @@ import torch
 import torch.distributed as dist
 
 from ..data import DataLoader, build_dataset
+from ..data.builder import load_loader_state, loader_state
 from ..models.builder import build_detector, train_canvas
 from ..models.layers.precision import compute_dtype
-from ..models.weight_init import init_random_weights_
+from ..models.weight_init import head_scale_of, init_random_weights_
 from ..parallel.mesh import Layout, mesh_from_cfg, mesh_shape
 from ..parallel.multihost import init_multihost, rank_device, run_ranks
 from ..parallel.shardings import gather_payload, shard_train_state_
 from ..utils.checkpoint import (latest_checkpoint, load_checkpoint,
-                                load_pretrained_backbone, load_weights,
+                                load_meta, load_pretrained_backbone,
+                                load_weights,
                                 read_pretrained_backbone,
                                 restore_train_state, save_checkpoint,
                                 train_state_dict)
@@ -198,7 +200,8 @@ def init_trainer(config: Union[str, Config],
         load_jax_variables(model, variables)
     else:
         init_random_weights_(
-            model, torch.Generator(device=device).manual_seed(seed))
+            model, torch.Generator(device=device).manual_seed(seed),
+            head_scale_of(cfg))
     model.train()
 
     frozen = cfg.model.get('backbone', {}).get('frozen_stages', 1)
@@ -338,7 +341,11 @@ def train_detector(cfg: Config, work_dir: str,
     when the trainer keeps them) writes a `mode='val'` record. Checkpoints
     go to `work_dir/ckpt_<epoch or step>`, at the interval and at the end.
     `resume_from` (a checkpoint, or 'auto' for the work dir's latest)
-    restores the whole state and starts at epoch step // steps per epoch;
+    restores the whole state and starts at epoch step // steps per epoch,
+    with the loader's random state of the epoch's end when the checkpoint
+    holds it (`data/builder.py:loader_state`, kept by the epoch-based
+    runner), so that the resumed epochs draw the batches an uninterrupted
+    run draws;
     `load_from` loads the weights alone (the EMA restarts from them);
     `pretrained_backbone`, a classification checkpoint of the trunk
     (`utils/checkpoint.py:load_pretrained_backbone`: official Swin or
@@ -349,7 +356,7 @@ def train_detector(cfg: Config, work_dir: str,
     default generators, seeded at every step from `seed` and the step
     (`_dropout_seed`), so a resumed run draws what an uninterrupted one
     does in any process; the loader's sampler and the datasets draw from
-    `seed`.
+    `seed` (their state at an epoch's end goes into the checkpoint).
 
     Several ranks: `n_devices=k` (k > 1) in a single process starts k ranks
     itself (`parallel/multihost.py:run_ranks`: one card each, more than
@@ -438,6 +445,9 @@ def train_detector(cfg: Config, work_dir: str,
             state = restore_train_state(model, state,
                                         load_checkpoint(path, device))
             start_epoch = state.step // max(steps_per_epoch, 1)
+            drawn = load_meta(path).get('loader')
+            if drawn is not None and not iter_based:
+                load_loader_state(loader, drawn)
             if main:
                 print(f'[train] resumed from {path} (epoch {start_epoch})')
     elif load_from:
@@ -461,9 +471,12 @@ def train_detector(cfg: Config, work_dir: str,
 
     def do_ckpt(tag: int):
         payload = gather_payload(train_state_dict(model, state), layout)
+        meta = dict(epoch=tag, classes=classes)
+        if not iter_based:          # at an epoch's end: the loader's draws
+            meta['loader'] = loader_state(loader)
         if main:
             save_checkpoint(os.path.join(work_dir, f'ckpt_{tag}'), payload,
-                            meta=dict(epoch=tag, classes=classes))
+                            meta=meta)
 
     def do_eval(tag_key: str, tag: int):
         nonlocal metrics_out, val_ds

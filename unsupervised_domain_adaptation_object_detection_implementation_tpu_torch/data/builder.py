@@ -150,6 +150,56 @@ class DataLoader:
         return gen()
 
 
+def _rng_state(rng: np.random.RandomState) -> list:
+    name, keys, pos, has_gauss, gauss = rng.get_state()
+    return [name, keys.tolist(), int(pos), int(has_gauss), float(gauss)]
+
+
+def _set_rng_state(rng: np.random.RandomState, state: list):
+    name, keys, pos, has_gauss, gauss = state
+    rng.set_state((name, np.asarray(keys, np.uint32), pos, has_gauss, gauss))
+
+
+def _drawing_datasets(dataset) -> list:
+    """The datasets under `dataset` (itself, a `ConcatDataset`'s parts, a
+    `RepeatDataset`'s inner one) that draw from a `RandomState` of their
+    own, in order."""
+    if hasattr(dataset, 'datasets'):
+        return [d for sub in dataset.datasets
+                for d in _drawing_datasets(sub)]
+    if hasattr(dataset, 'dataset'):
+        return _drawing_datasets(dataset.dataset)
+    return [dataset] if hasattr(dataset, '_rng') else []
+
+
+def loader_state(loader: 'DataLoader') -> dict:
+    """The loader's random state between two epochs, as JSON: its
+    sampler's `RandomState` (and the two-stream sampler's pools) and each
+    dataset's. Taken when an epoch's batches are all made (the prefetch
+    thread stops at the epoch's end), it makes a resumed run draw the
+    batches an uninterrupted one draws."""
+    sampler = loader.sampler
+    return dict(sampler=_rng_state(sampler.rng),
+                pools=[list(getattr(sampler, '_src_pool', [])),
+                       list(getattr(sampler, '_tgt_pool', []))],
+                datasets=[_rng_state(d._rng)
+                          for d in _drawing_datasets(loader.dataset)])
+
+
+def load_loader_state(loader: 'DataLoader', state: dict):
+    """Restore a `loader_state`."""
+    sampler = loader.sampler
+    _set_rng_state(sampler.rng, state['sampler'])
+    if hasattr(sampler, '_src_pool'):
+        sampler._src_pool[:], sampler._tgt_pool[:] = state['pools']
+    datasets = _drawing_datasets(loader.dataset)
+    if len(datasets) != len(state['datasets']):
+        raise ValueError(f'the loader state holds {len(state["datasets"])} '
+                         f'datasets, this loader {len(datasets)}')
+    for d, s in zip(datasets, state['datasets']):
+        _set_rng_state(d._rng, s)
+
+
 def build_dataloader(dataset, samples_per_gpu: int, shuffle: bool = True,
                      seed: int = 0, **kwargs) -> DataLoader:
     """One device's loader: `samples_per_gpu` rows a batch."""

@@ -16,8 +16,12 @@ that takes neither (the plain DC5 `FasterRCNN`, CyDA) raises, where the
 JAX builder drops the key with a warning and builds its ResNet.
 
 Beside the nested parts, a nested config's `gen_blocks` (the CycleGAN
-generators' depth, `model.gen_blocks=2` on a CyDA config) reaches a
-detector that takes it; the JAX builder ignores it there. `canvas`, the static training canvas
+generators' depth, `model.gen_blocks=2` on a CyDA config),
+`rpn_head.feat_channels` (the RPN conv's width) and
+`roi_head.bbox_head.fc_out_channels` (the Shared2FC head's, and the DA
+instance heads' input) reach a detector that takes them; the JAX builder
+ignores them there and builds 2048 and 1024, the widths every config
+states. `canvas`, the static training canvas
 that sizes the MHSA heads, comes from the caller: `apis.init_trainer` and
 `apis.init_detector` pass `train_canvas(cfg)`, the train pipeline's `Pad`
 size.
@@ -231,8 +235,13 @@ def build_detector(cfg: Dict[str, Any],
     params = _init_params(cls)
     if any(k in cfg for k in ('backbone', 'rpn_head', 'roi_head')):
         kwargs = _nested_to_kwargs(cfg)
-        if 'gen_blocks' in cfg and 'gen_blocks' in params:
-            kwargs['gen_blocks'] = cfg['gen_blocks']
+        passed = dict(
+            gen_blocks=cfg.get('gen_blocks'),
+            rpn_feat_channels=cfg.get('rpn_head', {}).get('feat_channels'),
+            fc_out_channels=cfg.get('roi_head', {}).get(
+                'bbox_head', {}).get('fc_out_channels'))
+        kwargs.update({k: v for k, v in passed.items()
+                       if v is not None and k in params})
     else:
         kwargs = _flat_kwargs(cls, cfg)
     for key in ('backbone_type', 'backbone_cfg'):

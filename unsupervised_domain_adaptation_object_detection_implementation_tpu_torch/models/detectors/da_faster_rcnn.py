@@ -77,11 +77,13 @@ class DAFasterRCNN(FasterRCNN):
         self.group_k = group_k
         self.loss_weights = loss_weights
         self.quirk_detach = quirk_detach
+        feat_dim = self.bbox_head.shared_fc2.out_features
         if instance_mode in ('grouped', 'split_plain'):
-            self.local_da_fore = InstanceAlignmentHead()
-            self.local_da_back = InstanceAlignmentHead()
+            self.local_da_fore = InstanceAlignmentHead(feat_dim)
+            self.local_da_back = InstanceAlignmentHead(feat_dim)
         elif instance_mode == 'plain':
-            self.local_da = InstanceAlignmentHead(use_nonlocal=False)
+            self.local_da = InstanceAlignmentHead(feat_dim,
+                                                  use_nonlocal=False)
 
     def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
         # the Swin trunk is tapped at the stage of `featmap_stride` (stage 2

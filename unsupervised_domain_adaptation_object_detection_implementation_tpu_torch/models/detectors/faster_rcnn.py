@@ -79,6 +79,8 @@ class FasterRCNN(nn.Module):
                  roi_train_cfg: RoITrainConfig = RoITrainConfig(),
                  roi_test_cfg: RoITestConfig = RoITestConfig(),
                  featmap_stride: int = 16,
+                 rpn_feat_channels: int = 2048,
+                 fc_out_channels: int = 1024,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -93,11 +95,14 @@ class FasterRCNN(nn.Module):
         self.backbone = self._build_backbone(backbone_depth, frozen_stages)
         # the tapped stage's width (C5 on the DC5 trunk, stage 2 on Swin)
         width = self._trunk().stage_channels()[self.backbone.out_indices[0]]
-        self.rpn_head = RPNHead(in_channels=width, feat_channels=2048,
+        self.rpn_head = RPNHead(in_channels=width,
+                                feat_channels=rpn_feat_channels,
                                 num_anchors=anchor_cfg.num_anchors,
                                 dtype=dtype)
         self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
-                                           in_channels=width, dtype=dtype)
+                                           in_channels=width,
+                                           fc_out_channels=fc_out_channels,
+                                           dtype=dtype)
 
     def _build_backbone(self, depth: int, frozen_stages: int) -> nn.Module:
         return ResNet(depth=depth, strides=(1, 2, 2, 1),

@@ -16,9 +16,23 @@ from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
 
 
+HEAD_SCALES = ('mmdet', 'lecun')
+
+
+def head_scale_of(cfg) -> str:
+    """The head init scale a config asks for: `random_init=dict(
+    heads='lecun')` (or `--cfg-options random_init.heads=lecun`), 'mmdet'
+    without one."""
+    scale = ((cfg.get('random_init') or {}).get('heads') or 'mmdet')
+    if scale not in HEAD_SCALES:
+        raise ValueError(f'random_init.heads={scale!r}: one of '
+                         f'{HEAD_SCALES}')
+    return scale
+
+
 @torch.no_grad()
-def init_random_weights_(model: nn.Module, generator: torch.Generator
-                         ) -> nn.Module:
+def init_random_weights_(model: nn.Module, generator: torch.Generator,
+                         heads: str = 'mmdet') -> nn.Module:
     """Fill `model` in place: conv and linear weights ~ N(0, 1/fan_in)
     (flax's lecun_normal scale, which keeps activations of order one through
     a frozen-BN ResNet), biases 0, frozen and live BN (the DA heads') as
@@ -33,7 +47,9 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
     config's full lr (0.01, no clip) then diverges within three steps. The
     mask heads keep the lecun scale, as in the JAX package (the normed
     predictor's raw kernel too, over its input channels). `generator`
-    lives on the model's device."""
+    lives on the model's device. `heads='lecun'` leaves the RPN and box
+    heads at the lecun scale, as the JAX package draws every layer (the
+    draws before them are the same)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -57,7 +73,7 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator
         elif isinstance(m, FCNMaskHead) and m.normed_predictor:
             k = m.conv_logits_kernel
             k.normal_(0.0, 1.0 / math.sqrt(k.shape[0]), generator=generator)
-    for m in model.modules():
+    for m in model.modules() if heads == 'mmdet' else ():
         if isinstance(m, RPNHead):
             layers = [(c, 0.01) for c in m.modules()
                       if isinstance(c, nn.Conv2d)]
