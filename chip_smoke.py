@@ -279,6 +279,30 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    pair is held to the plain version and timed (entries
    `roi_align_pyramid_{fwd,bwd}/gate3`; the forward on an eval batch's
    proposals). Work dir build/synth_da_runs/, emptied after.
+25. roi variants — the two-stage RoI-head variants from their COCO
+   configs at full width (R50-FPN, 80 classes, seeded weights):
+   configs/double_heads/dh_faster_rcnn_r50_fpn_1x.py (also with
+   `model.dtype=bfloat16`), configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py,
+   configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_1x.py and its GRoIE row
+   configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x.py,
+   configs/ms_rcnn/ms_rcnn_r50_fpn_1x.py and
+   configs/point_rend/point_rend_r50_fpn_1x.py: 2 requests of 2
+   Cityscapes-size images on the 800x1344 canvas (Mask Scoring's rescored
+   scores may fall under the threshold, Grid R-CNN's decoded edges may
+   cross with random weights, as in JAX) and 1 warm-up and 2 timed train
+   steps on 2 images 800x1344 with 112² rasters, finite losses under the
+   JAX keys; every request and step launches the pair as the code implies
+   (`VARIANT_RUNS`: GRoIE four launches a feature pass each way, its
+   serving level-assigned), every parameter but the stem and layer1 moves
+   (Grid R-CNN's regressor by weight decay alone; its zero bias stays).
+   On the RoIs a step of each trained f32 model samples, the pair is held
+   to the plain version: box features, Grid's o=14 grid features, GRoIE's
+   four single-level calls summed (o=7 and o=14) and each level's
+   gradient, the mask features and targets. Timed: Grid's grid features
+   and GRoIE's box features (entries `roi_align_pyramid_{fwd,bwd}/
+   grid_feats`, `/groie`). Last, the five tiny R18 variants card vs CPU:
+   detections within 1e-3, masks within 1e-4, one train step's losses
+   within 1e-4 relative.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -321,6 +345,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     faster_rcnn as frcnn_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
     faster_rcnn_fpn as frcnn_fpn_mod
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
+    roi_variants as variants_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors.mask_rcnn import \
     paste_masks
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers.norm import \
@@ -845,7 +871,8 @@ def phase_fpn_kernels():
     return [fwd, time_fpn_backward(BWD_FPN, feats, rois, grad, worst)]
 
 
-def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05):
+def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05,
+                  ordered=True):
     h, w = shape_hw
     if len(res) != num_classes:
         raise RuntimeError(f'{len(res)} class arrays, expected {num_classes}')
@@ -858,7 +885,7 @@ def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05):
         boxes, scores = det[:, :4], det[:, 4]
         if (boxes < -1e-3).any() or (boxes[:, 0::2] > w + 1e-2).any() \
                 or (boxes[:, 1::2] > h + 1e-2).any() \
-                or (boxes[:, 2:] < boxes[:, :2]).any():
+                or (ordered and (boxes[:, 2:] < boxes[:, :2]).any()):
             raise RuntimeError('dets outside the image or inverted')
         if ((scores <= score_thr) | (scores > 1.0)).any():
             raise RuntimeError('scores outside (score_thr, 1]')
@@ -869,7 +896,8 @@ def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05):
 
 
 def _serve(card, config, label, expect, overrides=None, n_requests=4,
-           stats=None, canvas=(608, 1024)):
+           stats=None, canvas=(608, 1024), score_floor=None,
+           ordered=True):
     """`init_detector` on `config` (full width, seeded random weights; with
     `overrides` merged in; its test pipeline must give `canvas`), one
     warm-up request and `n_requests` timed
@@ -877,7 +905,11 @@ def _serve(card, config, label, expect, overrides=None, n_requests=4,
     name to (its launch counter, launches per request); the counters are
     set to 0 just before the timed requests and checked after each.
     Returns the bundle, the requests and the launch counts; `stats`, a
-    dict, gets the latencies (ms) and the peak memory (bytes)."""
+    dict, gets the latencies (ms) and the peak memory (bytes). Scores must
+    exceed the config's `score_thr`, or `score_floor` where a detector
+    rescores its detections after the threshold; boxes must have x2 >= x1
+    and y2 >= y1 unless `ordered` is False (a detector that decodes each
+    edge on its own)."""
     # serving runs with PyTorch's defaults: cuDNN convolutions in TF32,
     # matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
@@ -911,9 +943,10 @@ def _serve(card, config, label, expect, overrides=None, n_requests=4,
         res = inference_detector(bundle, req)
         latencies.append(1e3 * (time.perf_counter() - t0))
         for r in res:
-            n_dets += _check_result(r, (1024, 2048),
-                                    bundle.model.num_classes, 100,
-                                    bundle.model.roi_test_cfg.score_thr)
+            n_dets += _check_result(
+                r, (1024, 2048), bundle.model.num_classes, 100,
+                bundle.model.roi_test_cfg.score_thr if score_floor is None
+                else score_floor, ordered)
         for name, (fn, per_request) in expect.items():
             if fn.launches != i * per_request:
                 raise RuntimeError(f'{name}: {fn.launches} launches after '
@@ -1224,25 +1257,99 @@ def _fpn_tiny_cfg():
     return cfg
 
 
-def phase_reference(config=TINY, label='tiny fixture', hw=(64, 96), seed=3):
+def _choice_margin(name, model, args, ref, own_args, own):
+    """The CPU's choice `ref` on its inputs `args` and the card's `own` on
+    its `own_args`, in the method `name` → (the rows where they differ,
+    the CPU's margin in each row, the largest difference between the two
+    sides' values the choice is made on). PointRend's `point_coords`: the
+    set of the `num_points` most uncertain points of each RoI, margin the
+    gap between the last chosen and the first left -|logit|; Grid R-CNN's
+    `grid_cells`: each point's argmax cell, margin the best cell's lead
+    over the next."""
+    if name == 'point_coords':
+        values, own_values = (
+            -variants_mod.own_class(logits, labels.cpu(),
+                                    model.num_classes).abs().flatten(2)
+            for logits, labels in (args, [a.cpu() for a in own_args]))
+        k = ref[1].shape[-1]
+        top = values.topk(min(k + 1, values.shape[-1]), dim=-1).values
+        margin = top[..., k - 1] - top[..., min(k, top.shape[-1] - 1)]
+        differ = (ref[1].sort(-1).values !=
+                  own[1].cpu().sort(-1).values).any(-1)
+    else:
+        values, own_values = args[0], own_args[0].cpu()
+        b, s, g = values.shape[:3]
+        top = values.reshape(b, s, g * g, -1).topk(2, dim=2).values
+        margin = top[:, :, 0] - top[:, :, 1]
+        differ = ref != own.cpu()
+    return differ, margin, float((own_values - values).abs().max())
+
+
+def _tie_replay(cpu_model, card_model, names, label):
+    """Hold card and CPU on one choice among near-equal values: each call
+    of a method `names` lists records on `cpu_model` what it returns, and
+    the same call on `card_model` (made after it) returns that, on the
+    card. The card still makes its own choice: where it differs, the CPU's
+    margin there must lie within twice the largest difference between the
+    two sides' values (only then can rounding reorder two of them), so
+    that a differing choice is a near-tie and nothing else, and the rest
+    of the path is held at the usual tolerances."""
+    for name in names:
+        recorded = []
+        cpu_fn, card_fn = getattr(cpu_model, name), getattr(card_model, name)
+
+        def record(*args, _fn=cpu_fn, _rec=recorded):
+            out = _fn(*args)
+            _rec.append((args, out))
+            return out
+
+        def replay(*args, _fn=card_fn, _rec=recorded, _name=name):
+            own = _fn(*args)
+            cpu_args, ref = _rec.pop(0)
+            differ, margin, spread = _choice_margin(_name, cpu_model,
+                                                    cpu_args, ref, args, own)
+            n = int(differ.sum())
+            widest = float(margin[differ].max()) if n else 0.0
+            log(f'reference: {label} {_name}: the card chose otherwise in '
+                f'{n} of {differ.numel()} rows, the CPU\'s widest margin '
+                f'there {widest:.3e}, the sides\' values up to '
+                f'{spread:.3e} apart (narrowest margin in any row '
+                f'{float(margin.min()):.3e})')
+            if widest > 2 * spread:
+                raise RuntimeError(f'{label}: the card\'s {_name} differs '
+                                   f'where the CPU\'s margin {widest} is '
+                                   f'over twice the sides\' spread {spread}')
+            if isinstance(ref, tuple):
+                return tuple(t.to('cuda') for t in ref)
+            return ref.to('cuda')
+
+        setattr(cpu_model, name, record)
+        setattr(card_model, name, replay)
+
+
+def phase_reference(config=TINY, label='tiny fixture', hw=(64, 96), seed=3,
+                    ties=()):
     """A tiny detector: card (kernels) vs CPU (plain versions), from the
     same weights, TF32 off: detections within 1e-3; for a mask detector
     also `predict`'s labels and validity identical and its masks, every
-    row, within 1e-4."""
+    row, within 1e-4. The CPU runs first; the card replays its choices
+    among near-equal values in the methods `ties` names (`_tie_replay`)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rs = np.random.RandomState(1)
     imgs = [rs.randint(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(2)]
-    outs, preds = [], []
-    for device in ('cuda', 'cpu'):
-        bundle = init_detector(config, device='cpu', seed=seed)
-        if device == 'cuda':
-            bundle = bundle._replace(model=bundle.model.to('cuda'),
-                                     device=torch.device('cuda'))
-        outs.append(inference_detector(bundle, imgs))
+    cpu, card = (init_detector(config, device='cpu', seed=seed)
+                 for _ in range(2))
+    card = card._replace(model=card.model.to('cuda'),
+                         device=torch.device('cuda'))
+    _tie_replay(cpu.model, card.model, ties, label)
+    outs, preds = [None, None], [None, None]     # (card, CPU)
+    for i, bundle in ((1, cpu), (0, card)):
+        outs[i] = inference_detector(bundle, imgs)
         if getattr(bundle.model, 'with_mask', False):
-            preds.append({k: v.cpu() for k, v in bundle.model.predict(
-                prepare_batch(bundle, imgs)[0]).items()})
+            preds[i] = {k: v.cpu() for k, v in bundle.model.predict(
+                prepare_batch(bundle, imgs)[0]).items()}
+    preds = [p for p in preds if p is not None]
     if preds:
         (got, ref), masks = preds, preds[1]['masks']
         mask_err = float((got['masks'] - masks).abs().max())
@@ -1270,7 +1377,8 @@ def phase_reference(config=TINY, label='tiny fixture', hw=(64, 96), seed=3):
 
 def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
                           anchors=4 * 6 * 6, proposals=64, seed=3,
-                          mask_size=None, lr=0.002, stage_samples=None):
+                          mask_size=None, lr=0.002, stage_samples=None,
+                          ties=()):
     """One tiny train step on the card (kernels) against the same step on
     the CPU (plain versions), from the same weights, TF32 off, dropout off
     and the same sampler priorities (`anchors` and 6 gt + `proposals`
@@ -1281,7 +1389,8 @@ def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
     whatever the gradient, so under Adam the parameters hold the update
     rule only, and the gradients are held through both moments (the first
     is 0.1x the clipped gradient): each within 1e-4 of the largest entry of
-    the whole moment."""
+    the whole moment. The CPU steps first; the card replays its choices in
+    the methods `ties` names, as `phase_reference`."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config.fromfile(config) if isinstance(config, str) else config
@@ -1291,6 +1400,7 @@ def phase_reference_train(config=TINY, label='tiny fixture', hw=(64, 96),
     trainers = [init_trainer(cfg, device=d, seed=seed, steps_per_epoch=1)
                 for d in ('cpu', 'cuda')]
     trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    _tie_replay(trainers[0].model, trainers[1].model, ties, label)
     batch = demo_batch(2, *hw, g=6, num_classes=2, seed=4, device='cpu',
                        mask_size=mask_size)
     gen = torch.Generator().manual_seed(5)
@@ -3947,6 +4057,293 @@ def phase_gate3(card, kernels):
     shutil.rmtree(GATE3_DIR)
 
 
+# ---- the RoI-head variants (Double-Head, Dynamic, Grid, Mask Scoring,
+# PointRend) and GRoIE -----------------------------------------------------
+
+DOUBLE_HEAD = 'configs/double_heads/dh_faster_rcnn_r50_fpn_1x.py'
+DYNAMIC = 'configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py'
+GRID = 'configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_1x.py'
+GRID_GROIE = 'configs/groie/grid_rcnn_r50_fpn_gn-head_groie_1x.py'
+MASK_SCORING = 'configs/ms_rcnn/ms_rcnn_r50_fpn_1x.py'
+POINT_REND = 'configs/point_rend/point_rend_r50_fpn_1x.py'
+VARIANT_BOX_KEYS = {'loss_rpn_cls', 'loss_rpn_bbox', 'loss_cls',
+                    'loss_bbox'}
+GRID_KEYS = {'loss_rpn_cls', 'loss_rpn_bbox', 'loss_cls', 'loss_grid'}
+# Grid R-CNN trains no box regression: its regressor moves by weight decay
+# alone, and the zero bias stays zero, as in JAX
+GRID_STILL = ('bbox_head.fc_reg.bias',)
+FWD_GROIE, BWD_GROIE = ('roi_align_pyramid_fwd/groie',
+                        'roi_align_pyramid_bwd/groie')
+
+
+class VariantRun(NamedTuple):
+    """One run of `phase_roi_variants`: as `CascadeRun` (the pair's
+    launches a request and a train step, the loss terms, the timed regimes,
+    the parameters that do not move), whether the served detection
+    scores are rescored below the config's threshold (Mask Scoring: the
+    class score x the predicted mask IoU, which may be 0), and whether the
+    served boxes' edges keep their order (Grid R-CNN decodes each edge from
+    its own grid points: with random weights they cross, in JAX too)."""
+    label: str
+    config: str
+    overrides: dict
+    serving: int
+    step: Tuple[int, int]
+    keys: set
+    timed: Tuple[str, ...] = ()
+    still: Tuple[str, ...] = ()
+    rescored: bool = False
+    ordered: bool = True
+
+
+# The launches, counted from the code (models/detectors/roi_variants.py). A
+# request: the box features, then Grid's grid features (o=14, level-
+# assigned whatever the extractor) and the mask features of Mask Scoring
+# and PointRend. A step: the box features forward and backward, Grid's
+# grid features, the mask features forward and backward and the mask
+# targets forward; with GRoIE each feature pass is four launches, one a
+# level, each way.
+VARIANT_RUNS = (
+    VariantRun('double head', DOUBLE_HEAD, {}, 1, (1, 1), VARIANT_BOX_KEYS),
+    VariantRun('dynamic', DYNAMIC, {}, 1, (1, 1), VARIANT_BOX_KEYS),
+    VariantRun('grid', GRID, {}, 2, (2, 2), GRID_KEYS, ('grid_feats',),
+               GRID_STILL, ordered=False),
+    VariantRun('grid groie', GRID_GROIE, {}, 2, (8, 8), GRID_KEYS,
+               ('groie',), GRID_STILL, ordered=False),
+    VariantRun('mask scoring', MASK_SCORING, {}, 2, (3, 2),
+               VARIANT_BOX_KEYS | {'loss_mask', 'loss_mask_iou'},
+               rescored=True),
+    VariantRun('point rend', POINT_REND, {}, 2, (3, 2),
+               VARIANT_BOX_KEYS | {'loss_mask', 'loss_point'}),
+    VariantRun('double head bf16', DOUBLE_HEAD, BF16, 1, (1, 1),
+               VARIANT_BOX_KEYS))
+CASCADE_ENTRIES['grid_feats'] = ('roi_align_pyramid_fwd/grid_feats',
+                                 'roi_align_pyramid_bwd/grid_feats', 944,
+                                 889, 14, False)
+# the tiny card-vs-CPU references: each config with an R18 trunk, 2
+# classes, 32 RoIs and few proposals (as FEW_PROPOSALS), at one weight
+# seed whose top RPN logits lie apart; the card replays the CPU's grid
+# argmaxes and 196-point choices (`_tie_replay`), which near-ties of the
+# two sides' rounding may turn otherwise
+VARIANT_TINY = {'model.backbone_depth': 18, 'model.num_classes': 2,
+                'model.roi_train_cfg': dict(num_samples=32),
+                'model.rpn_proposal_cfg': dict(nms_pre=64, max_per_img=32),
+                'model.rpn_test_cfg': dict(nms_pre=64, max_per_img=32),
+                'data.test.pipeline': [dict(type='MultiScaleFlipAug',
+                                            img_scale=(192, 128))]}
+VARIANT_TINY_SEED = 3
+VARIANT_TIES = {GRID: ('grid_cells',), POINT_REND: ('point_coords',)}
+
+
+def groie_work(rois, shapes, out_size=7, backward=False, elem=4):
+    """`roi_align_work` of GRoIE's function, every RoI pooled from each of
+    the four levels and the four summed. Forward: each level's touched
+    pixels read once, the summed output written once; per level one FMA a
+    nonzero product and channel and one scale an output, then three adds
+    an output. Backward: the output gradient read once, each level's
+    gradient written once (f32 buffer), per level one multiply and one add
+    a nonzero product and channel and one scale an output. The RoIs."""
+    touched = products = 0
+    for (_, h, w, _), s in zip(shapes, FPN_STRIDES):
+        t, p, _ = roi_align_taps(rois, h, w, out_size, scale=1 / s)
+        touched, products = touched + t, products + p
+    b, n = rois.shape[:2]
+    c = shapes[0][3]
+    n_out = b * n * out_size * out_size * c
+    feat_bytes = 4 * sum(bb * h * w * c for bb, h, w, _ in shapes) \
+        if backward else elem * touched * c
+    return elem * n_out + feat_bytes + rois.numel() * 4, \
+        2 * products * c + (4 if backward else 7) * n_out
+
+
+def _hold_groie(maps, rois, gen, what, out_size=7, flatten=True,
+                timed=True):
+    """GRoIE's regime at the maps' dtype: the pair at one level on each of
+    the four levels (the RoIs pooled from every level, no level array),
+    summed, against the plain single-level version summed; then each
+    level's backward on a seeded cotangent against the plain version's
+    gradient into that level. With `timed`, the four launches are timed
+    each way (the three adds that sum the forward's outputs timed apart:
+    they are not the kernel's) beside the plain version, and their two
+    entries returned with GRoIE's bound (`groie_work`)."""
+    scales = [1 / s for s in FPN_STRIDES]
+    shapes = [tuple(m.shape) for m in maps]
+    dtype = maps[0].dtype
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    what = f'{str(dtype)[6:]} o={out_size} {what}'
+
+    def launches():
+        return [roi_align.roi_align_pyramid_cuda((m,), rois, None, (sc,),
+                                                 out_size, flatten=flatten)
+                for m, sc in zip(maps, scales)]
+
+    def summed(outs):
+        out = outs[0]
+        for o in outs[1:]:
+            out = out + o
+        return out
+
+    def plain(fs):
+        return summed([roi_align.batched_roi_align_plain(
+            f, rois, sc, out_size, flatten=flatten)
+            for f, sc in zip(fs, scales)])
+
+    got = summed(launches())
+    err_f = _check(FWD_GROIE, got, plain(maps), tol, what)
+    grad = torch.randn(got.shape, generator=gen, device='cuda').to(dtype)
+
+    def bwd():
+        return [roi_align.roi_align_pyramid_bwd_cuda(
+            grad, rois, None, [shape], (sc,), out_size, flatten=flatten)[0]
+            for shape, sc in zip(shapes, scales)]
+
+    fs = [m.detach().requires_grad_() for m in maps]
+    ref = torch.autograd.grad(plain(fs), fs, grad)
+    err_b = max(_check(BWD_GROIE, g, r, tol, f'{what}, level P{i + 2}')
+                for i, (g, r) in enumerate(zip(bwd(), ref)))
+    if not timed:
+        return []
+    ms_f, ms_b = time_ms(launches, 20), time_ms(bwd, 20)
+    outs = launches()
+    adds_ms = time_ms(lambda: summed(outs), 20)
+    plain_f = time_ms(lambda: plain(maps), 3, warmup=1)
+    plain_b = plain_backward_ms(plain, maps, grad)
+    elem = torch.finfo(dtype).bits // 8
+    entries = []
+    for name, line, bw, err, ms, pms in (
+            (FWD_GROIE, 63, False, err_f, ms_f, plain_f),
+            (BWD_GROIE, 303, True, err_b, ms_b, plain_b)):
+        nbytes, ops = groie_work(rois, shapes, out_size, bw, elem)
+        e = _entry(name, line, nbytes, ops, max_abs_err=err, ms=ms,
+                   plain_ms=pms)
+        entries.append(e)
+        log(f'kernels: {name} {what} {shapes} x {rois.shape[0]}x'
+            f'{rois.shape[1]} rois, the four launches: {ms:.4f} ms, plain '
+            f'{pms:.4f} ms, bound {e["bound_ms"]:.4f} ms ({e["bound_by"]}: '
+            f'{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)'
+            + (f'; the three adds that sum the levels {adds_ms:.4f} ms'
+               if not bw else ''))
+    return entries
+
+
+def variant_kernels(label, model, timed):
+    """The pair against its plain version on the RoIs a train step of the
+    trained full-width `model` samples from `mask_batch` at 800x1344 (gt
+    boxes on every level): the box features and Grid's o=14 grid features
+    of its extractor (level-assigned, or GRoIE's four single-level calls),
+    the mask features and targets of the mask variants. Returns the entries
+    of the `timed` regimes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = mask_batch(COCO_CANVAS)
+    maps, sampled, gen = sample_step_rois(model, batch, 3)
+    rois = sampled.rois
+    what = (f'{label} on a step\'s sampled RoIs, per level P2..P5 '
+            f'{_level_counts(roi_align.roi_levels(rois, 4))}')
+    entries = []
+    groie = model.roi_extractor_type == 'groie'
+    if groie:
+        entries += _hold_groie(maps, rois, gen, what,
+                               timed='groie' in timed)
+    else:
+        entries += _hold_pair('box', maps, rois, gen, what, False)
+    if hasattr(model, 'grid_head') and groie:
+        entries += _hold_groie(maps, rois, gen, what, 14, False, False)
+    elif hasattr(model, 'grid_head'):
+        entries += _hold_pair('grid_feats', maps, rois, gen, what,
+                              'grid_feats' in timed)
+    # the timed regimes once more at bf16, untimed: the pair as a bf16
+    # config of the family would launch it
+    bf16 = [m.to(torch.bfloat16) for m in maps]
+    if 'groie' in timed:
+        _hold_groie(bf16, rois, gen, what, timed=False)
+    if 'grid_feats' in timed:
+        _hold_pair('grid_feats', bf16, rois, gen, what, False)
+    if model.with_mask:
+        entries += _hold_pair('mask', maps, rois, gen, what, False)
+        _targets_on_sampled_rois(label, batch, sampled, 28)
+    return entries
+
+
+def phase_roi_variants(card, kernels):
+    """The RoI-head variants at full width from their COCO configs (R50-FPN,
+    80 classes, 800x1344): per run 2 requests, 1 warm-up and 2 timed train
+    steps on 2 images with 112² rasters, launching the pair as VARIANT_RUNS
+    counts; every parameter but the stem and layer1 moved (Grid R-CNN's
+    zero regressor bias excepted); the pair held on a step's sampled RoIs.
+    Then the tiny R18 variants card vs CPU."""
+    rows = []
+    for run in VARIANT_RUNS:
+        stats = {}
+        bundle, requests, served = _serve(
+            card, run.config, f'{run.label} serving',
+            {'roi_align_pyramid_fwd': (FWD, run.serving),
+             'roi_align_pyramid_bwd': (BWD, 0)},
+            overrides=dict(run.overrides, **COCO_SERVING), n_requests=2,
+            stats=stats, canvas=COCO_CANVAS,
+            score_floor=-1e-6 if run.rescored else None,
+            ordered=run.ordered)
+        if not stats['dets']:
+            raise RuntimeError(f'{run.label}: no detection in any request')
+        dtype = bundle.model.dtype
+        if bundle.model.with_mask:
+            _cascade_masks(f'{run.label} serving', bundle, requests[-1])
+        del bundle
+        _free()
+        trainer, state, start, times, totals, peak = _train(
+            card, run.config, COCO_STEPS, f'{run.label} train',
+            {'roi_align_pyramid_fwd': (FWD, run.step[0]),
+             'roi_align_pyramid_bwd': (BWD, run.step[1])},
+            _coco_batch(), steps=2, keys=run.keys, overrides=run.overrides)
+        if trainer.model.dtype != dtype:
+            raise RuntimeError(f'{run.label}: trained in '
+                               f'{trainer.model.dtype}, served in {dtype}')
+        moved = _moved(trainer.state.params, start, FPN_FROZEN + run.still,
+                       run.label)
+        log(_train_summary(f'{run.label} train', f'{run.config} '
+                           f'{str(dtype)[6:]}', times, peak, totals, card,
+                           '2 images 800x1344')
+            + f'; {moved} parameters moved, stem and layer1 unchanged'
+            + ''.join(f', {p} unchanged' for p in run.still))
+        if dtype == torch.float32:
+            entries = variant_kernels(run.label, trainer.model, run.timed)
+            for e in entries:
+                e['launches'] = served['roi_align_pyramid_fwd'] + \
+                    totals['roi_align_pyramid_fwd'] if '_fwd/' in e['name'] \
+                    else totals['roi_align_pyramid_bwd']
+            kernels += entries
+        rows.append(f'{run.label} {run.config} {str(dtype)[6:]}: request ms '
+                    f'mean {np.mean(stats["latencies"]):.2f} '
+                    f'{[round(t, 2) for t in stats["latencies"]]}, serving '
+                    f'peak {stats["peak"] / 2**30:.2f} GiB, launches a '
+                    f'request {run.serving}; step ms median '
+                    f'{float(np.median(times)):.2f} '
+                    f'{[round(t, 2) for t in times]}, train peak '
+                    f'{peak / 2**30:.2f} GiB, launches a step {run.step}')
+        del trainer, state, start
+        _free()
+    for row in rows:
+        log(f'roi variants summary: {row} [{card}]')
+    anchors = 3 * sum(-(-128 // st) * -(-192 // st)
+                      for st in (4, 8, 16, 32, 64))
+    for path in (DOUBLE_HEAD, DYNAMIC, GRID, MASK_SCORING, POINT_REND):
+        run = next(r for r in VARIANT_RUNS if r.config == path)
+        label = f'tiny {run.label} (R18)'
+        cfg = _tiny_cfg(path, VARIANT_TINY)
+        mask = 'loss_mask' in run.keys
+        ties = VARIANT_TIES.get(path, ())
+        before = FWD.launches, BWD.launches
+        phase_reference(cfg, label, (100, 150), VARIANT_TINY_SEED, ties)
+        phase_reference_train(_tiny_cfg(path, VARIANT_TINY), label,
+                              (128, 192), anchors, 32, VARIANT_TINY_SEED,
+                              mask_size=MASK_M if mask else None, ties=ties)
+        # a request (and `predict` once more for the masks), then one step
+        want = ((2 if mask else 1) * run.serving + run.step[0], run.step[1])
+        got = (FWD.launches - before[0], BWD.launches - before[1])
+        if got != want:
+            raise RuntimeError(f'{label} on the card launched the pair '
+                               f'{got} times, expected {want}')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3977,6 +4374,7 @@ def main():
     phase_parallel(card, kernels, loop_records)
     phase_cascade(card, kernels)
     phase_gate3(card, kernels)
+    phase_roi_variants(card, kernels)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -194,7 +194,7 @@ def test_converter_maps_every_leaf_at_full_width():
     ({'neck_type': 'PAFPN'}, 'PAFPN'),
     ({'backbone_cfg': dict(type='ResNeXt')}, 'ResNet'),
     ({'roi_layer': 'dpool'}, 'roi_layer'),
-    ({'roi_extractor_type': 'groie'}, 'groie'),
+    ({'roi_extractor_type': 'groie_concat'}, 'groie'),
     ({'roi_train_cfg': dict(sampler_type='ohem')}, 'ohem'),
 ])
 def test_builder_refuses_what_is_not_ported(override, match):

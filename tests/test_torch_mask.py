@@ -325,7 +325,7 @@ def test_converter_maps_every_leaf_at_full_width(path, overrides, prefixes):
 
 @pytest.mark.parametrize('det_type,override,match', [
     ('MaskRCNN', {'loss_cls': 'seesaw'}, 'softmax'),
-    ('MaskRCNN', {'roi_extractor_type': 'groie'}, 'groie'),
+    ('MaskRCNN', {'roi_extractor_type': 'groie_concat'}, 'groie'),
     ('MaskRCNN', {'neck_type': 'PAFPN'}, 'PAFPN'),
     ('MaskRCNN', {'backbone_cfg': dict(type='ResNeXt')}, 'ResNet'),
     ('MaskRCNN', {'roi_layer': 'dpool'}, 'roi_layer'),

@@ -37,7 +37,13 @@ TABLE = {
              'FasterRCNN_SWDA', 60, [45, 55]),
     'cascade': (('shapes_clear',), 'shapes_clear', 'CascadeRCNN', 15, [12]),
     'fpn': (('shapes_clear',), 'shapes_clear', 'FasterRCNNFPN', 15, [12]),
+    'double_head': (('shapes_clear',), 'shapes_clear', 'DoubleHeadRCNN', 15,
+                    [12]),
+    'grid': (('shapes_clear',), 'shapes_clear', 'GridRCNN', 15, [12]),
+    'dynamic': (('shapes_clear',), 'shapes_clear', 'DynamicRCNN', 30, [12]),
 }
+# the rows whose RPN and box heads keep mmdet's init scale
+MMDET_ROWS = ('cascade', 'fpn', 'double_head', 'dynamic')
 
 
 def _row_configs(name):
@@ -162,7 +168,8 @@ def test_lecun_head_scale_is_an_option_the_da_rows_take():
     classifier and regressor at the lecun scale (std 1/sqrt(fan_in)), as
     the JAX package draws them; the default redraws them at mmdet's
     (0.01, 0.01, 0.001); every other tensor is the same draw. The DA rows
-    ask for it, the zoo rows do not, and another value raises."""
+    and the Grid R-CNN row ask for it, the other zoo rows do not, and
+    another value raises."""
     ttrain = importlib.import_module(f'{PORT_PKG}.apis.train')
     tiny = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
     models = {}
@@ -184,8 +191,41 @@ def test_lecun_head_scale_is_an_option_the_da_rows_take():
         assert abs(float(mmdet[n].std()) / heads[n] - 1) < 0.1, n
     for name, row in runs.ROWS.items():
         assert (row.options.get('random_init.heads') == 'lecun') == \
-            (name not in ('cascade', 'fpn')), name
+            (name not in MMDET_ROWS), name
     cfg = tconfig.Config.fromfile(tiny)
     cfg.merge_from_dict({'random_init.heads': 'xavier'})
     with pytest.raises(ValueError, match='random_init.heads'):
         ttrain.init_trainer(cfg, device='cpu', steps_per_epoch=1)
+
+
+@pytest.mark.parametrize('config', ['configs/da/synth_maskscoring_smoke.py',
+                                    'configs/da/synth_pointrend_smoke.py'])
+def test_coco_mask_runs_lists_the_mask_variant_rows(config):
+    """`tools/coco_mask_runs.py synth --config` takes the Mask Scoring
+    R-CNN and PointRend rows: each parses, redirected to the committed
+    polygon split as `run_synth` redirects it, into the model the JAX
+    reader reads (R18, 2 classes) and builds the port's type, with the
+    split's 200 training and 50 test images."""
+    mask_runs = importlib.import_module(f'{PORT_PKG}.tools.coco_mask_runs')
+    tbuilder = importlib.import_module(f'{PORT_PKG}.models.builder')
+    assert config in mask_runs.SYNTH_CONFIGS
+    seg = mask_runs.SEG_DIR
+    options = mask_runs.split_options({'data.train': f'{seg}/train.json',
+                                       'data.val': f'{seg}/test.json',
+                                       'data.test': f'{seg}/test.json'})
+    port = tconfig.Config.fromfile(str(ROOT / config))
+    port.merge_from_dict(options)
+    jax_cfg = jconfig.Config.fromfile(str(ROOT / config))
+    assert port.model == jax_cfg.model
+    kind = pathlib.Path(config).stem.split('_')[1]
+    model = tbuilder.build_detector(port.model, device='meta')
+    assert type(model).__name__ == {'maskscoring': 'MaskScoringRCNN',
+                                    'pointrend': 'PointRend'}[kind]
+    assert model.num_classes == 2 and len(model.backbone.layer3) == 2
+    with_root = {k: str(ROOT / v) for k, v in options.items()}
+    for split, n in (('train', 200), ('val', 50)):
+        ds = dict(port.data[split], **{
+            f: with_root[f'data.{split}.{f}'] for f in ('ann_file',
+                                                        'img_prefix')})
+        assert len(tdata.build_dataset(dict(ds, test_mode=split != 'train'),
+                                       'cpu')) == n

@@ -73,8 +73,12 @@ _ADVERSARIAL = {'DAFasterRCNN', 'DAFasterRCNN_Org', 'MAFasterRCNN',
 # two-group step
 _GAN = {'CyDAFasterRCNN', 'CyCADA'}
 # detectors that train on one device only (their multi-rank step is not
-# ported: the semantic and global-context losses have no global-batch form)
-_ONE_DEVICE = {'CascadeRCNN', 'CascadeMaskRCNN', 'HTC', 'SCNet'}
+# ported: the semantic and global-context losses, the variants' IoU, grid
+# and point losses and Dynamic R-CNN's batch statistics have no
+# global-batch form)
+_ONE_DEVICE = {'CascadeRCNN', 'CascadeMaskRCNN', 'HTC', 'SCNet',
+               'DoubleHeadRCNN', 'DynamicRCNN', 'GridRCNN',
+               'MaskScoringRCNN', 'PointRend'}
 
 
 class Trainer(NamedTuple):
@@ -225,9 +229,9 @@ def _refuse_ranks(cfg: Config):
     """Raise for a detector whose multi-rank step is not ported."""
     if cfg.model.get('type') in _ONE_DEVICE:
         raise NotImplementedError(
-            f"{cfg.model['type']} on several ranks: the cascade family's "
-            'multi-rank step is not ported (ROADMAP.md); train it on one '
-            'device')
+            f"{cfg.model['type']} on several ranks: the multi-rank step of "
+            'the cascade family and the RoI-head variants is not ported '
+            '(ROADMAP.md); train it on one device')
 
 
 def _refuse_unported(cfg: Config, launcher, n_devices=None):

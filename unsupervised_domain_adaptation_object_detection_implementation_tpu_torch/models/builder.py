@@ -47,7 +47,8 @@ from ..utils.registry import DETECTORS
 from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
 from .detectors import (cascade_rcnn,  # noqa: F401 (register)
                         cyda_faster_rcnn, da_faster_rcnn, faster_rcnn,
-                        faster_rcnn_fpn, htc, mask_rcnn, mask_rcnn_c4, scnet)
+                        faster_rcnn_fpn, htc, mask_rcnn, mask_rcnn_c4,
+                        roi_variants, scnet)
 from .detectors.faster_rcnn import AnchorConfig
 from .layers.precision import compute_dtype
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
@@ -77,6 +78,11 @@ _REFERENCE_DETECTOR_MAP = {
     'CascadeMaskRCNN': ('CascadeMaskRCNN', {}),
     'HTC': ('HTC', {}),
     'SCNet': ('SCNet', {}),
+    'DoubleHeadRCNN': ('DoubleHeadRCNN', {}),
+    'DynamicRCNN': ('DynamicRCNN', {}),
+    'GridRCNN': ('GridRCNN', {}),
+    'MaskScoringRCNN': ('MaskScoringRCNN', {}),
+    'PointRend': ('PointRend', {}),
 }
 
 # reference bbox_head.loss_bbox types that decode boxes (the IoU family);

@@ -30,10 +30,20 @@ from ..necks.build import make_fpn_neck
 from ..roi_heads.bbox_head import Shared2FCBBoxHead
 from ..roi_heads.standard_roi_head import (RoITestConfig, RoITrainConfig,
                                            bbox_loss, extract_roi_feats_fpn,
+                                           extract_roi_feats_groie,
                                            roi_head_predict, sample_rois)
 from .faster_rcnn import cached_grid_anchors
 
 ROI_STRIDES = (4, 8, 16, 32)
+
+
+def check_roi_extractor(roi_extractor_type: str) -> None:
+    """Raise unless the extractor is one the port has: 'single' (each RoI
+    from its level) or 'groie' (every level, summed)."""
+    if roi_extractor_type not in ('single', 'groie'):
+        raise NotImplementedError(
+            f'roi_extractor_type {roi_extractor_type!r}: the port has the '
+            "single-level-per-RoI extractor ('single') and GRoIE ('groie')")
 
 
 class FPNRPNHead(RPNHead):
@@ -58,6 +68,8 @@ class FPNProposer(nn.Module):
     family), with their serving surface (`extract_feat`, `rpn_outputs`,
     `roi_maps`, `roi_extract`). Only the plain FPN neck and the default
     ResNet (or Swin) trunk are ported; the other choices raise."""
+
+    roi_extractor_type = 'single'
 
     def __init__(self, num_classes: int = 80, backbone_depth: int = 50,
                  backbone_cfg: Any = None, neck_type: str = 'FPN',
@@ -114,12 +126,16 @@ class FPNProposer(nn.Module):
         return tuple(f.permute(0, 2, 3, 1).contiguous()
                      for f in feats[:len(ROI_STRIDES)])
 
-    @staticmethod
-    def roi_extract(feats_nhwc: Sequence[torch.Tensor], rois: torch.Tensor,
-                    out_size: int = 7, flatten: bool = True) -> torch.Tensor:
-        """Multi-level RoIAlign: 7x7 flat x-major for the Shared2FC head by
-        default; (B, R, o, o, C) with `flatten=False` (the mask branch's
-        14x14)."""
+    def roi_extract(self, feats_nhwc: Sequence[torch.Tensor],
+                    rois: torch.Tensor, out_size: int = 7,
+                    flatten: bool = True) -> torch.Tensor:
+        """The RoI extractor over P2–P5: 7x7 flat x-major for the Shared2FC
+        head by default; (B, R, o, o, C) with `flatten=False` (the mask
+        branch's 14x14). Each RoI is pooled from its own level, or, with
+        `roi_extractor_type='groie'`, from every level, summed."""
+        if self.roi_extractor_type == 'groie':
+            return extract_roi_feats_groie(feats_nhwc, rois, ROI_STRIDES,
+                                           out_size=out_size, flatten=flatten)
         return extract_roi_feats_fpn(feats_nhwc, rois, ROI_STRIDES,
                                      out_size=out_size, flatten=flatten)
 
@@ -163,8 +179,14 @@ class FPNProposer(nn.Module):
 class FasterRCNNFPN(FPNProposer):
     """Trunk → FPN → RPN over P2–P6 → proposals → multi-level RoIAlign →
     Shared2FC → multiclass NMS. Only the plain FPN neck, the default ResNet
-    trunk, RoIAlign with the single-level-per-RoI extractor and the random
-    sampler are ported; the other choices raise."""
+    trunk, RoIAlign with the single-level-per-RoI extractor or GRoIE's
+    all-level sum (`roi_extractor_type='groie'`) and the random sampler are
+    ported; the other choices raise. Subclasses swap the box head
+    (`bbox_head_type`) and build on the loss's two halves (`_sample`,
+    `_box_losses`) and on `_detect`."""
+
+    with_mask = False
+    bbox_head_type = Shared2FCBBoxHead
 
     def __init__(self, num_classes: int = 80, backbone_depth: int = 50,
                  backbone_cfg: Any = None, neck_type: str = 'FPN',
@@ -184,10 +206,7 @@ class FasterRCNNFPN(FPNProposer):
         if roi_layer != 'align':
             raise NotImplementedError(f'roi_layer {roi_layer!r}: only '
                                       "RoIAlign ('align') is ported")
-        if roi_extractor_type != 'single':
-            raise NotImplementedError(
-                f'roi_extractor_type {roi_extractor_type!r}: only the '
-                "single-level-per-RoI extractor ('single') is ported")
+        check_roi_extractor(roi_extractor_type)
         if roi_train_cfg.sampler_type != 'random':
             raise NotImplementedError(
                 f'sampler {roi_train_cfg.sampler_type!r}: only the random '
@@ -196,11 +215,12 @@ class FasterRCNNFPN(FPNProposer):
                          neck_type, frozen_stages, rpn_strides,
                          rpn_train_cfg, rpn_proposal_cfg, rpn_test_cfg,
                          neck_channels, dtype)
+        self.roi_extractor_type = roi_extractor_type
         self.roi_train_cfg = roi_train_cfg
         self.roi_test_cfg = roi_test_cfg
-        self.bbox_head = Shared2FCBBoxHead(num_classes=num_classes,
-                                           in_channels=neck_channels,
-                                           dtype=dtype)
+        self.bbox_head = self.bbox_head_type(num_classes=num_classes,
+                                             in_channels=neck_channels,
+                                             dtype=dtype)
 
     def loss(self, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -213,6 +233,15 @@ class FasterRCNNFPN(FPNProposer):
     def _det_losses(self, batch, generator, sampler_priorities):
         """`loss`'s RPN and box losses; returns (losses, sampled RoIs, the
         RoI extractor's NHWC levels)."""
+        maps, losses, sampled, _ = self._sample(batch, generator,
+                                                sampler_priorities)
+        losses.update(self._box_losses(maps, sampled))
+        return losses, sampled, maps
+
+    def _sample(self, batch, generator, sampler_priorities):
+        """The trunk, the RPN loss, the proposals and the RoI sampler →
+        (the RoI extractor's NHWC levels, the RPN losses, the sampled RoIs,
+        the proposals)."""
         pri = sampler_priorities or {}
         feats, losses, proposals, prop_valid = self._proposals(
             batch, generator, sampler_priorities)
@@ -222,14 +251,16 @@ class FasterRCNNFPN(FPNProposer):
                 batch['gt_labels'], batch['gt_valid'], self.num_classes,
                 self.roi_train_cfg, priorities=pri.get('rcnn'),
                 generator=generator)
-        maps = self.roi_maps(feats)
+        return self.roi_maps(feats), losses, sampled, proposals
+
+    def _box_losses(self, maps, sampled) -> Dict[str, torch.Tensor]:
+        """The box head's losses on the sampled RoIs."""
         with record_function('step/roi_align_fwd'):
             roi_feats = self.roi_extract(maps, sampled.rois)
         with record_function('step/bbox_head_and_loss'):
             cls_s, reg_s, _ = self.bbox_head(roi_feats)
-            losses.update(bbox_loss(cls_s, reg_s, sampled, self.num_classes,
-                                    self.roi_train_cfg))
-        return losses, sampled, maps
+            return bbox_loss(cls_s, reg_s, sampled, self.num_classes,
+                             self.roi_train_cfg)
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]
@@ -238,8 +269,10 @@ class FasterRCNNFPN(FPNProposer):
         RoI head → per-class NMS."""
         return self._detect(batch)[0]
 
-    def _detect(self, batch):
-        """`predict`'s detections and the RoI extractor's NHWC levels."""
+    def _detect(self, batch, with_reg: bool = True, roi_extractor=None):
+        """`predict`'s detections and the RoI extractor's NHWC levels;
+        `with_reg=False` scores the proposals themselves, `roi_extractor`
+        replaces `roi_extract`."""
         feats, proposals, prop_valid = self._test_proposals(batch)
         maps = self.roi_maps(feats)
         return roi_head_predict(
@@ -248,4 +281,6 @@ class FasterRCNNFPN(FPNProposer):
             reg_class_agnostic=False,
             target_stds=self.roi_train_cfg.target_stds,
             use_sigmoid_cls=self.roi_train_cfg.use_sigmoid_cls,
-            cfg=self.roi_test_cfg, roi_extractor=self.roi_extract), maps
+            cfg=self.roi_test_cfg,
+            roi_extractor=roi_extractor or self.roi_extract,
+            with_reg=with_reg), maps

@@ -31,7 +31,6 @@ from __future__ import annotations
 import functools
 from typing import Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -39,30 +38,9 @@ from torch.profiler import record_function
 
 from ...utils.registry import DETECTORS
 from ..layers.precision import Conv2d
+from ..layers.resize import resize_nearest
 from .cascade_rcnn import NUM_STAGES, ROI_CHANNELS, CascadeMaskRCNN
 from .mask_rcnn import select_class_masks
-
-
-def _nearest_index(m: int, n: int) -> np.ndarray:
-    """The source index of each of n outputs resized from m: floor((i +
-    0.5) · m / n) in float32, product first, as `jax.image.resize(...,
-    'nearest')` computes it (torch's 'nearest-exact' multiplies by m / n
-    instead, which can round across a whole number)."""
-    pos = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * np.float32(m)
-    return np.floor(pos / np.float32(n)).astype(np.int64)
-
-
-def resize_nearest(x: torch.Tensor, size: Tuple[int, int],
-                   dims: Tuple[int, int] = (-2, -1)) -> torch.Tensor:
-    """`jax.image.resize(x, ..., 'nearest')` over the two `dims` of x to
-    `size`: half-pixel nearest with JAX's float32 source positions, as a
-    gather (any dtype)."""
-    for d, n in zip(dims, size):
-        m = x.shape[d]
-        if m != n:
-            idx = torch.from_numpy(_nearest_index(m, n)).to(x.device)
-            x = x.index_select(d, idx)
-    return x
 
 
 class HTCMaskHead(nn.Module):

@@ -13,7 +13,7 @@ puts them into the image.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,18 @@ def select_class_masks(mask_logits: torch.Tensor, labels: torch.Tensor,
     sel = torch.gather(mask_logits, -1,
                        lbl[..., None, None, None].expand(b, d, h, w, 1))
     return torch.sigmoid(sel[..., 0].float())
+
+
+class MaskBranch(NamedTuple):
+    """A train step's mask branch: the RoI extractor's NHWC levels, the
+    sampled RoIs, their (B, S, s, s, C) mask features, (B, S, m, m, K)
+    logits and (B, S, m, m) targets, and the positives' (B, S) weights."""
+    maps: Tuple[torch.Tensor, ...]
+    sampled: Any
+    feats: torch.Tensor
+    logits: torch.Tensor
+    targets: torch.Tensor
+    pos_w: torch.Tensor
 
 
 @DETECTORS.register_module()
@@ -65,6 +77,11 @@ class MaskRCNN(FasterRCNNFPN):
              ) -> Dict[str, torch.Tensor]:
         """The RPN and box losses of `FasterRCNNFPN`, then the mask loss on
         the same sampled RoIs; each stage a `step/...` range."""
+        return self._mask_losses(batch, generator, sampler_priorities)[0]
+
+    def _mask_losses(self, batch, generator, sampler_priorities):
+        """`loss`'s losses, and the mask branch that the mask variants'
+        extra heads read (`MaskBranch`)."""
         gt_masks = batch_gt_masks(batch)
         losses, sampled, maps = self._det_losses(batch, generator,
                                                  sampler_priorities)
@@ -77,10 +94,11 @@ class MaskRCNN(FasterRCNNFPN):
                 gt_masks, batch['gt_bboxes'], sampled.rois,
                 sampled.matched_gt, self.mask_size)
         with record_function('step/mask_head_and_loss'):
+            logits = self.mask_head(feats)
             pos_w = (sampled.is_pos & sampled.label_valid).float()
-            losses.update(mask_loss(self.mask_head(feats), targets,
-                                    sampled.labels, pos_w))
-        return losses
+            losses.update(mask_loss(logits, targets, sampled.labels, pos_w))
+        return losses, MaskBranch(maps, sampled, feats, logits, targets,
+                                  pos_w)
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]

@@ -4,8 +4,10 @@
   statistics never change, the affine scale/bias are parameters.
 - `BatchNorm`: the live norm of the DA heads, with `flax.linen.BatchNorm`'s
   semantics (the JAX heads use flax's module directly).
-- `InstanceNorm`: the CycleGAN's norm, `flax.linen.GroupNorm` with one
-  channel a group (JAX `models/da/cyclegan.py:_inorm`).
+- `GroupNorm`: `flax.linen.GroupNorm`'s numerics, Grid R-CNN's head norm
+  (JAX `models/detectors/roi_variants.py:GridHead`, 8 groups, statistics
+  over every RoI of an image); `InstanceNorm` is its one-channel-a-group
+  case, the CycleGAN's norm (JAX `models/da/cyclegan.py:_inorm`).
 - `LayerNorm`: the Swin trunk's norm, `flax.linen.LayerNorm` over the last
   dim.
 
@@ -14,6 +16,8 @@ ones, so converted weights and `batch_stats` load by name.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -83,30 +87,58 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class InstanceNorm(nn.Module):
-    """Instance norm with `flax.linen.GroupNorm(num_groups=None,
-    group_size=1)`'s numerics, the CycleGAN's norm: per image and channel
-    over the spatial dims, the fast variance E[x²] − E[x]² clamped at 0,
-    ε 1e-6 (torch's `GroupNorm`/`InstanceNorm2d` use 1e-5 and the two-pass
-    variance), then y = (x − mean) · rsqrt(var + ε) · scale + bias, in f32
-    at least (f64 stays f64, as in flax). Channels are dim 1."""
+class GroupNorm(nn.Module):
+    """`flax.linen.GroupNorm(num_groups=...)` (or `group_size=...`) with
+    flax's numerics: the statistics of each group over every dim but the
+    first (the sample) and the channel dim `channel_dim`, the fast variance
+    E[x²] − E[x]² clamped at 0, ε 1e-6 (torch's `GroupNorm` and
+    `InstanceNorm2d` use 1e-5 and the two-pass variance), then y = (x −
+    mean) · (rsqrt(var + ε) · scale) + bias, all in f32 at least (f64
+    stays f64). Like flax's module without a `dtype`, the result keeps that
+    type: a bf16 input gives f32.
 
-    def __init__(self, features: int, epsilon: float = 1e-6):
+    flax reduces every dim between the first and the channels, so a (B, S,
+    h, w, C) RoI stack is normalised per image over all S RoIs: pass it as
+    (B, S, C, h, w) with `channel_dim=2`."""
+
+    def __init__(self, features: int, num_groups: Optional[int] = None,
+                 group_size: Optional[int] = None, epsilon: float = 1e-6,
+                 channel_dim: int = 1):
         super().__init__()
+        if (num_groups is None) == (group_size is None):
+            raise ValueError('give one of num_groups and group_size')
         self.features = features
+        self.num_groups = num_groups or features // group_size
+        if features % self.num_groups:
+            raise ValueError(f'{self.num_groups} groups do not divide '
+                             f'{features} channels')
         self.epsilon = epsilon
+        self.channel_dim = channel_dim
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        dims = tuple(range(2, x.dim()))
+        cd, g = self.channel_dim, self.num_groups
+        shape = x.shape
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dims, keepdim=True)
-        var = torch.clamp((xf * xf).mean(dims, keepdim=True) - mean * mean,
+        xg = xf.reshape(*shape[:cd], g, shape[cd] // g, *shape[cd + 1:])
+        dims = tuple(d for d in range(1, xg.dim()) if d != cd)
+        mean = xg.mean(dims, keepdim=True)
+        var = torch.clamp((xg * xg).mean(dims, keepdim=True) - mean * mean,
                           min=0.0)
-        mul = torch.rsqrt(var + self.epsilon) * self.scale.view(shape)
-        return ((xf - mean) * mul + self.bias.view(shape)).to(x.dtype)
+        affine = (1,) * cd + (g, shape[cd] // g) + (1,) * (len(shape) - cd - 1)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.view(affine)
+        y = (xg - mean) * mul + self.bias.view(affine)
+        return y.reshape(shape)
+
+
+class InstanceNorm(GroupNorm):
+    """Instance norm with `flax.linen.GroupNorm(num_groups=None,
+    group_size=1)`'s numerics, the CycleGAN's norm: per image and channel
+    over the spatial dims (channels are dim 1), as `GroupNorm`."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6):
+        super().__init__(features, group_size=1, epsilon=epsilon)
 
 
 class LayerNorm(nn.Module):

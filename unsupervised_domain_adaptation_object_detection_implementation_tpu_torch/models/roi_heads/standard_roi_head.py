@@ -1,6 +1,7 @@
 """RoI head training and inference (counterpart of the JAX package's
 `models/roi_heads/standard_roi_head.py`: `sample_rois`, `bbox_loss`,
-`extract_roi_feats`, `extract_roi_feats_fpn` and `roi_head_predict`).
+`extract_roi_feats`, `extract_roi_feats_fpn`, `extract_roi_feats_groie`
+and `roi_head_predict`).
 
 RoIs stay a padded (B, S, 4) tensor with validity masks; gt boxes join the
 proposals as candidates (`add_gt_as_proposals`).
@@ -175,6 +176,24 @@ def extract_roi_feats_fpn(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                                  flatten=flatten)
 
 
+def extract_roi_feats_groie(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                            strides: Sequence[int] = (4, 8, 16, 32),
+                            out_size: int = 7, sampling_ratio: int = 2,
+                            flatten: bool = False) -> torch.Tensor:
+    """GRoIE, the generic RoI extractor with `aggregation='sum'` and
+    identity pre and post modules (mmdet's default): every RoI (B, R, 4) is
+    pooled from every level and the levels' outputs are summed, finest
+    first → (B, R, o, o, C), or (B, R, o·o·C) x-major. On a card that is
+    the RoIAlign pair at one level on each level: a forward launch each,
+    and a backward launch each when the levels need a gradient."""
+    out = None
+    for i, s in enumerate(strides):
+        aligned = batched_roi_align(feats[i], rois, 1.0 / s, out_size,
+                                    sampling_ratio, flatten=flatten)
+        out = aligned if out is None else out + aligned
+    return out
+
+
 def roi_head_predict(bbox_head_apply: Callable,
                      feats,
                      proposals: torch.Tensor,
@@ -186,12 +205,15 @@ def roi_head_predict(bbox_head_apply: Callable,
                      target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2),
                      use_sigmoid_cls: bool = True,
                      cfg: RoITestConfig = RoITestConfig(),
-                     roi_extractor: Optional[Callable] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     roi_extractor: Optional[Callable] = None,
+                     with_reg: bool = True) -> Dict[str, torch.Tensor]:
     """RoIAlign → bbox head → decode → clip → `multiclass_nms`.
 
     `roi_extractor` (feats, rois) → roi_feats replaces the single-level
     extractor at `featmap_stride` (the FPN's multi-level one).
+    `with_reg=False` scores the proposals themselves, without decoding the
+    head's deltas (mmdet's `with_reg=False` box head: Grid R-CNN trains no
+    regressor and localises with its grid head afterwards).
 
     A sigmoid head gets a synthesized zero background column; scores of
     padded proposals are zeroed by `prop_valid`; boxes are clipped to each
@@ -214,7 +236,9 @@ def roi_head_predict(bbox_head_apply: Callable,
     scores = scores * prop_valid[..., None]
 
     b, p = proposals.shape[:2]
-    if reg_class_agnostic:
+    if not with_reg:
+        boxes = proposals[:, :, None, :].expand(b, p, num_classes, 4)
+    elif reg_class_agnostic:
         dec = delta2bbox(proposals, reg.reshape(b, p, 4), stds=target_stds)
         boxes = dec[:, :, None, :].expand(b, p, num_classes, 4)
     else:

@@ -11,7 +11,8 @@ from .dense_heads.rpn_head import RPNHead
 from .detectors.mask_rcnn_c4 import C4BBoxHead
 from .layers.attention import MHSA
 from .backbones.swin import WindowAttention
-from .layers.norm import BatchNorm, FrozenBatchNorm, InstanceNorm, LayerNorm
+from .layers.norm import BatchNorm, FrozenBatchNorm, GroupNorm, LayerNorm
+from .detectors.roi_variants import DoubleBBoxHead
 from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
 
@@ -36,12 +37,13 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
     """Fill `model` in place: conv and linear weights ~ N(0, 1/fan_in)
     (flax's lecun_normal scale, which keeps activations of order one through
     a frozen-BN ResNet), biases 0, frozen and live BN (the DA heads') as
-    the identity (scale 1, bias 0, mean 0, var 1), the CycleGAN's instance
-    norms and the Swin trunk's layer norms likewise (scale 1, bias 0),
+    the identity (scale 1, bias 0, mean 0, var 1), the group norms (the
+    CycleGAN's instance norms, Grid R-CNN's head) and the Swin trunk's
+    layer norms likewise (scale 1, bias 0),
     MHSA's relative position parameters and the Swin windows' bias tables
     ~ N(0, 0.02²) as flax draws them; then the RPN's convs
-    ~ N(0, 0.01²) and the box heads' (Shared2FC, and C4's pooled one)
-    classifier ~ N(0, 0.01²) and regressor ~ N(0, 0.001²), as the reference
+    ~ N(0, 0.01²) and the box heads' (Shared2FC, C4's pooled one and
+    Double-Head's) classifier ~ N(0, 0.01²) and regressor ~ N(0, 0.001²), as the reference
     (mmdet's `RPNHead` and `BBoxHead`) initialises them. At the lecun scale
     those heads start with logits and box deltas of order one, and the FPN
     config's full lr (0.01, no clip) then diverges within three steps. The
@@ -62,7 +64,7 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
             m.bias.zero_()
             m.mean.zero_()
             m.var.fill_(1.0)
-        elif isinstance(m, (InstanceNorm, LayerNorm)):
+        elif isinstance(m, (GroupNorm, LayerNorm)):
             m.scale.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, MHSA):
@@ -77,7 +79,7 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
         if isinstance(m, RPNHead):
             layers = [(c, 0.01) for c in m.modules()
                       if isinstance(c, nn.Conv2d)]
-        elif isinstance(m, (Shared2FCBBoxHead, C4BBoxHead)):
+        elif isinstance(m, (Shared2FCBBoxHead, C4BBoxHead, DoubleBBoxHead)):
             layers = [(m.fc_cls, 0.01), (m.fc_reg, 0.001)]
         else:
             continue

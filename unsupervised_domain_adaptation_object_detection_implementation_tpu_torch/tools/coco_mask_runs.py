@@ -11,7 +11,7 @@ the synth rows and the full-width COCO configs, with their times.
 box-frame rasters, batch 8 of 128x192, SGD lr 0.01, an evaluation every 5
 epochs), or with `--config` one of the configs built on it
 (`SYNTH_CONFIGS`: the HTC and SCNet rows, semantic branch off, 128 RoIs
-an image), through `apis.train_detector` on the committed polygon split
+an image; the Mask Scoring R-CNN and PointRend rows), through `apis.train_detector` on the committed polygon split
 (tests/data/synth_seg: 200 training images; its 50 test images for the
 evaluations), for the config's 15 epochs unless `--epochs` says, and
 reports each evaluation's metrics (box AP50 by the loop's VOC protocol),
@@ -57,7 +57,9 @@ from . import test as test_cli
 SEG_DIR = 'tests/data/synth_seg'
 SYNTH_MASK = 'configs/da/synth_mask_smoke.py'
 SYNTH_CONFIGS = (SYNTH_MASK, 'configs/da/synth_htc_smoke.py',
-                 'configs/da/synth_scnet_smoke.py')
+                 'configs/da/synth_scnet_smoke.py',
+                 'configs/da/synth_maskscoring_smoke.py',
+                 'configs/da/synth_pointrend_smoke.py')
 COCO_CONFIGS = (
     'configs/mask_rcnn/mask_rcnn_r50_fpn_1x.py',
     'configs/mask_rcnn/mask_rcnn_r50_fpn_mstrain-poly_3x.py',

@@ -1,6 +1,7 @@
 """The synth clear→foggy rows on a CUDA card: the three-row UDAOD
-protocol (source-only, DAF + clip + EMA, oracle), SWDA, and the Cascade
-R-CNN and R18-FPN zoo rows, each beside the JAX package's figure.
+protocol (source-only, DAF + clip + EMA, oracle), SWDA, and the zoo rows
+(Cascade R-CNN, R18-FPN, Double-Head, Grid and Dynamic R-CNN), each beside
+the JAX package's figure.
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.synth_da_runs \
         <row> [<row> ...] [--seed 0] [--max-epochs k] [--resume-from <ckpt>] \
@@ -71,7 +72,8 @@ ZOO = 'configs/da/synth_zoo_smoke.py'
 # the DA rows draw the RPN and box heads at the lecun scale, as the JAX
 # rows did (flax's default for every layer): at mmdet's scale the port's
 # DAF and oracle rows missed their JAX figures and DAF fell to source-only
-# (PERF.md, gate 3); the zoo rows keep mmdet's (their lr is 0.01)
+# (PERF.md, gate 3); the zoo rows keep mmdet's (their lr is 0.01), but
+# for Grid R-CNN
 LECUN = {'random_init.heads': 'lecun'}
 ROWS = {
     'source_only': Row('configs/da/faster_rcnn_r18_synth_source_only.py',
@@ -95,6 +97,21 @@ ROWS = {
     'fpn': Row(ZOO, {'model.type': 'FasterRCNNFPN'}, 'train',
                (('shapes_clear', 'train'),), 'shapes_clear', 0.943,
                'docs/RESULTS.md:293'),
+    'double_head': Row(ZOO, {'model.type': 'DoubleHeadRCNN'}, 'train',
+                       (('shapes_clear', 'train'),), 'shapes_clear', 0.950,
+                       'docs/RESULTS.md:291'),
+    # Grid R-CNN's heads at the lecun scale: at mmdet's its grid head
+    # learned late and the row missed (PERF.md §6, the RoI-head variants)
+    'grid': Row(ZOO, dict(LECUN, **{'model.type': 'GridRCNN'}), 'train',
+                (('shapes_clear', 'train'),), 'shapes_clear', 0.801,
+                'docs/RESULTS.md:296'),
+    # the JAX record ran the zoo config for 30 epochs (docs/RESULTS.md:693)
+    # with its lr step at epoch 12; a step at 24 left three seeds at 0.10
+    # (PERF.md §6, the RoI-head variants)
+    'dynamic': Row(ZOO, {'model.type': 'DynamicRCNN',
+                         'runner.max_epochs': '30'},
+                   'train', (('shapes_clear', 'train'),), 'shapes_clear',
+                   0.366, 'docs/RESULTS.md:311, :693'),
 }
 
 

@@ -6,11 +6,14 @@
 - conv `kernel` (kh, kw, I, O) → `weight` (O, I, kh, kw);
 - Dense `kernel` (I, O) → `weight` (O, I). The first RoI FC keeps its rows
   as they are: port and JAX package both flatten RoI features x-major, so no
-  permutation is needed;
+  permutation is needed; so do the RoI-head variants' FCs over (y, x, C)
+  flattened maps (Double-Head's `fc0`, the MaskIoU head's `fc0`), which the
+  port feeds in that order;
 - `bias` → `bias`; BatchNorm `scale`/`bias` (params) and `mean`/`var`
   (batch_stats) keep their names, for the trunk's frozen BN and the DA
   heads' live BN alike;
-- the CycleGAN's instance norms' `scale`/`bias` keep their names;
+- the group norms' `scale`/`bias` (the CycleGAN's instance norms, Grid
+  R-CNN's `gn<i>`) keep their names;
 - the Swin trunk's LayerNorm `scale`/`bias` keep their names;
 - raw parameters keep their names and layouts: the normed mask
   predictor's `conv_logits_kernel` (C, K), MHSA's relative position
@@ -26,8 +29,9 @@ JAX names as modules of their own (`bbox_head_0` … `bbox_head_2`,
 `relay_head` (its Dense rows stay in (y, x, C) order, the order the port
 reads them in) and `scnet_mask_head`. Leaves with no counterpart in the
 model are returned, not dropped silently; for every detector the port
-has (each DA variant, CyDA and CyCADA, the Swin trunk and the cascade
-family included) there are none.
+has (each DA variant, CyDA and CyCADA, the Swin trunk, the cascade
+family and the RoI-head variants' `DoubleBBoxHead`, `GridHead`,
+`MaskIoUHead` and `PointHead` included) there are none.
 """
 
 from __future__ import annotations
