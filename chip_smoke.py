@@ -303,6 +303,29 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    grid_feats`, `/groie`). Last, the five tiny R18 variants card vs CPU:
    detections within 1e-3, masks within 1e-4, one train step's losses
    within 1e-4 relative.
+26. rpn detectors — the proposal-network family from its R50 configs at
+   full width (seeded weights, 800x1344): configs/rpn/rpn_r50_fpn_1x.py
+   and rpn_r50_caffe_c4_1x.py, configs/fast_rcnn/fast_rcnn_r50_fpn_1x.py
+   (fed the RPN's own proposals on the same images, in serving and in
+   training), configs/guided_anchoring/ga_{rpn,retinanet,faster}_r50_fpn_1x.py
+   and configs/cascade_rpn/crpn{,_faster_rcnn}_r50_caffe_fpn_1x.py (also
+   with `model.dtype=bfloat16`, whose adaptive kernel alone is a bf16
+   parameter): 2 requests of 2 Cityscapes-size images (the proposal
+   networks' detections are their proposals, up to 1000 an image) and 1
+   warm-up and 2 timed train steps on 2 images 800x1344 with 16 gt boxes
+   over the levels, finite losses under the JAX keys; every request and
+   step launches the pair as the code implies (`RPN_FAMILY_RUNS`: the
+   box features of the two-stage ones, none for the proposal networks),
+   every parameter but the stem and layer1 moves. On the RoIs a step of
+   each trained two-stage model samples, the pair is held to the plain
+   version (also at bf16), and timed on GA-Faster's and CRPN-Faster's
+   (entries `roi_align_pyramid_{fwd,bwd}/ga_box`, `/crpn_box`,
+   `/crpn_box_bf16`). The plain deformable conv on the card is held to
+   the CPU on a 64x96 cut of the P2 map (1e-4 of scale, forward and the
+   three gradients), and timed over the five levels at the step's shapes
+   beside a GA-RPN and a Cascade RPN step, with the memory it adds. Last,
+   tiny R18 GA-Faster and CRPN-Faster card vs CPU: detections within
+   1e-3, one train step's losses within 1e-4 relative.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -331,6 +354,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ap
     evaluate_dataset
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.apis.train_state import \
     at_count
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.core.bbox.transforms import \
+    bbox2result
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data import (
     DataLoader, build_dataset)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.data.pipelines.jpeg import \
@@ -347,6 +372,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     faster_rcnn_fpn as frcnn_fpn_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
     roi_variants as variants_mod
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
+    rpn_detectors as rpn_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors.mask_rcnn import \
     paste_masks
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers.norm import \
@@ -357,6 +384,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     sample_rois
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ops import (
     cuda_build, roi_align)
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.ops import \
+    deform_conv as deform_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.parallel import (
     dryrun, init_multihost, make_layout, run_ranks)
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools import \
@@ -897,7 +926,7 @@ def _check_result(res, shape_hw, num_classes, max_det, score_thr=0.05,
 
 def _serve(card, config, label, expect, overrides=None, n_requests=4,
            stats=None, canvas=(608, 1024), score_floor=None,
-           ordered=True):
+           ordered=True, max_det=100):
     """`init_detector` on `config` (full width, seeded random weights; with
     `overrides` merged in; its test pipeline must give `canvas`), one
     warm-up request and `n_requests` timed
@@ -906,10 +935,11 @@ def _serve(card, config, label, expect, overrides=None, n_requests=4,
     set to 0 just before the timed requests and checked after each.
     Returns the bundle, the requests and the launch counts; `stats`, a
     dict, gets the latencies (ms) and the peak memory (bytes). Scores must
-    exceed the config's `score_thr`, or `score_floor` where a detector
-    rescores its detections after the threshold; boxes must have x2 >= x1
-    and y2 >= y1 unless `ordered` is False (a detector that decodes each
-    edge on its own)."""
+    exceed the config's `score_thr` (its RoI head's, or a single-stage
+    detector's), or `score_floor` where a detector rescores its detections
+    after the threshold; boxes must have x2 >= x1 and y2 >= y1 unless
+    `ordered` is False (a detector that decodes each edge on its own); at
+    most `max_det` detections an image."""
     # serving runs with PyTorch's defaults: cuDNN convolutions in TF32,
     # matrix products in full f32
     torch.backends.cudnn.allow_tf32 = True
@@ -944,9 +974,10 @@ def _serve(card, config, label, expect, overrides=None, n_requests=4,
         latencies.append(1e3 * (time.perf_counter() - t0))
         for r in res:
             n_dets += _check_result(
-                r, (1024, 2048), bundle.model.num_classes, 100,
-                bundle.model.roi_test_cfg.score_thr if score_floor is None
-                else score_floor, ordered)
+                r, (1024, 2048), bundle.model.num_classes, max_det,
+                getattr(bundle.model, 'roi_test_cfg',
+                        getattr(bundle.model, 'test_cfg', None)).score_thr
+                if score_floor is None else score_floor, ordered)
         for name, (fn, per_request) in expect.items():
             if fn.launches != i * per_request:
                 raise RuntimeError(f'{name}: {fn.launches} launches after '
@@ -4344,6 +4375,356 @@ def phase_roi_variants(card, kernels):
                                f'{got} times, expected {want}')
 
 
+
+RPN_FPN = 'configs/rpn/rpn_r50_fpn_1x.py'
+RPN_C4 = 'configs/rpn/rpn_r50_caffe_c4_1x.py'
+FAST_RCNN = 'configs/fast_rcnn/fast_rcnn_r50_fpn_1x.py'
+GA_RPN = 'configs/guided_anchoring/ga_rpn_r50_fpn_1x.py'
+GA_RETINA = 'configs/guided_anchoring/ga_retinanet_r50_fpn_1x.py'
+GA_FASTER = 'configs/guided_anchoring/ga_faster_r50_fpn_1x.py'
+CRPN = 'configs/cascade_rpn/crpn_r50_caffe_fpn_1x.py'
+CRPN_FASTER = 'configs/cascade_rpn/crpn_faster_rcnn_r50_caffe_fpn_1x.py'
+RPN_KEYS = {'loss_rpn_cls', 'loss_rpn_bbox'}
+BOX_KEYS = {'loss_cls', 'loss_bbox'}
+GA_KEYS = {'loss_loc', 'loss_shape'}
+CRPN_KEYS = {'loss_rpn_reg_s1', 'loss_rpn_cls', 'loss_rpn_reg_s2'}
+
+
+class RPNFamilyRun(NamedTuple):
+    """One run of `phase_rpn_detectors`: the pair's launches a request and
+    a train step, the loss terms, the timed regimes and whether the
+    detections are proposals (class 0, up to the test config's
+    `max_per_img` an image, scored by the objectness sigmoid)."""
+    label: str
+    config: str
+    overrides: dict
+    serving: int
+    step: Tuple[int, int]
+    keys: set
+    timed: Tuple[str, ...] = ()
+    proposals: bool = False
+
+
+# The launches, counted from the code (models/detectors/rpn_detectors.py):
+# the proposal networks run no RoIAlign; the two-stage detectors pool the
+# box features once a request and once each way a step. GA-RetinaNet
+# serves at score_thr 0.01: its seeded class logits start at the JAX
+# init's bias, sigmoid 0.01, under the config's 0.05.
+RPN_FAMILY_RUNS = (
+    RPNFamilyRun('rpn', RPN_FPN, {}, 0, (0, 0), RPN_KEYS, proposals=True),
+    RPNFamilyRun('rpn c4', RPN_C4, {}, 0, (0, 0), RPN_KEYS, proposals=True),
+    RPNFamilyRun('fast rcnn', FAST_RCNN, {}, 1, (1, 1), BOX_KEYS),
+    RPNFamilyRun('ga rpn', GA_RPN, {}, 0, (0, 0), GA_KEYS | RPN_KEYS,
+                 proposals=True),
+    RPNFamilyRun('ga retinanet', GA_RETINA,
+                 {'model.test_cfg': dict(score_thr=0.01)}, 0, (0, 0),
+                 GA_KEYS | BOX_KEYS),
+    RPNFamilyRun('ga faster', GA_FASTER, {}, 1, (1, 1),
+                 GA_KEYS | RPN_KEYS | BOX_KEYS, ('ga_box',)),
+    RPNFamilyRun('crpn', CRPN, {}, 0, (0, 0), CRPN_KEYS,
+                 proposals=True),
+    RPNFamilyRun('crpn faster', CRPN_FASTER, {}, 1, (1, 1),
+                 CRPN_KEYS | BOX_KEYS, ('crpn_box',)),
+    RPNFamilyRun('crpn faster bf16', CRPN_FASTER, BF16, 1, (1, 1),
+                 CRPN_KEYS | BOX_KEYS, ('crpn_box_bf16',)))
+# the box features of GA-Faster's and CRPN-Faster's sampled RoIs: the JAX
+# package pools them with `roi_align_fpn_fused` at f32 and `_v2` at bf16
+CASCADE_ENTRIES.update(
+    ga_box=('roi_align_pyramid_fwd/ga_box', 'roi_align_pyramid_bwd/ga_box',
+            944, 889, 7, True),
+    crpn_box=('roi_align_pyramid_fwd/crpn_box',
+              'roi_align_pyramid_bwd/crpn_box', 944, 889, 7, True),
+    crpn_box_bf16=('roi_align_pyramid_fwd/crpn_box_bf16',
+                   'roi_align_pyramid_bwd/crpn_box_bf16', 1181, 1121, 7,
+                   True))
+# the tiny card-vs-CPU references: R18, 2 classes, 32 RoIs and few
+# proposals (as FEW_PROPOSALS), at one weight seed
+RPN_FAMILY_TINY = {'model.backbone_depth': 18, 'model.num_classes': 2,
+                   'model.roi_train_cfg': dict(num_samples=32),
+                   'model.rpn_proposal_cfg': dict(nms_pre=64,
+                                                  max_per_img=32),
+                   'model.test_cfg': dict(nms_pre=64, max_per_img=32),
+                   'data.test.pipeline': [dict(type='MultiScaleFlipAug',
+                                               img_scale=(192, 128))]}
+RPN_FAMILY_TINY_SEED = 3
+DEFORM_TOL = 1e-4
+
+
+def rpn_family_proposals(model, batch, cfg):
+    """(the neck's levels, proposals, their validity) of a two-stage
+    detector of the family as its `loss` (cfg = `rpn_proposal_cfg`) or
+    `predict` makes them; Fast R-CNN's are the batch's."""
+    if isinstance(model, rpn_mod.GAFasterRCNN):
+        loc, _, cls, reg, anchors, _, _, feats = model._flat(batch['image'])
+        proposals, _, valid = model._ga_proposals(
+            loc, cls, reg, anchors, batch['img_shape'], cfg)
+    elif isinstance(model, rpn_mod.CRPNFasterRCNN):
+        _, cls2, reg2, _, anchors1, feats = model._stages(batch['image'])
+        proposals, _, valid = rpn_mod.nms_proposals(
+            cls2, reg2, anchors1, batch['img_shape'], cfg)
+    else:
+        feats = rpn_mod._extract_feat(model, batch['image'])
+        proposals, valid = batch['proposals'], batch['proposals_valid']
+    return feats, proposals, valid
+
+
+def rpn_family_kernels(label, model, batch, timed):
+    """The pair against its plain version on the RoIs a train step of the
+    trained full-width two-stage `model` samples from `batch`; returns the
+    entries of the `timed` regimes (the rest held untimed)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    with torch.no_grad():
+        feats, proposals, valid = rpn_family_proposals(
+            model, batch, getattr(model, 'rpn_proposal_cfg', None))
+        sampled = sample_rois(
+            proposals, valid, batch['gt_bboxes'], batch['gt_labels'],
+            batch['gt_valid'], model.num_classes, model.roi_train_cfg,
+            generator=gen)
+        maps = frcnn_fpn_mod.FPNProposer.roi_maps(feats)
+    rois = sampled.rois.contiguous()
+    what = (f'{label} on a step\'s sampled RoIs, per level P2..P5 '
+            f'{_level_counts(roi_align.roi_levels(rois, 4))}')
+    entries = []
+    for regime in timed or ('box',):
+        entries += _hold_pair(regime, maps, rois, gen, what, bool(timed))
+    if model.dtype == torch.float32:
+        # once more at bf16, untimed: the pair as the bf16 config launches it
+        _hold_pair('box', [m.to(torch.bfloat16) for m in maps], rois, gen,
+                   what, False)
+    return entries
+
+
+def _deform_inputs(model, image):
+    """Per level, the adaptive conv's NHWC input, offsets and kernel as the
+    model's head passes them (GA's, or Cascade RPN's stage 2), recorded
+    from one forward of the trunk, neck and head."""
+    seen, plain = [], rpn_mod.batched_deform_conv2d
+
+    def record(x, off, weight, *args, **kwargs):
+        seen.append((x.contiguous(), off.contiguous(), weight))
+        return plain(x, off, weight, *args, **kwargs)
+
+    rpn_mod.batched_deform_conv2d = record
+    try:
+        with torch.no_grad():
+            (model._flat if hasattr(model, 'ga_head') else model._stages)(
+                image)
+    finally:
+        rpn_mod.batched_deform_conv2d = plain
+    return seen
+
+
+def _deform_fwd_bwd(inputs, grads=None):
+    """The adaptive convs of every level forward and backward (seeded
+    cotangents); returns the outputs and the gradients."""
+    outs, gs = [], []
+    for i, (x, off, w) in enumerate(inputs):
+        x, off, w = (v.detach().requires_grad_() for v in (x, off, w))
+        y = deform_mod.batched_deform_conv2d(x, off, w)
+        g = torch.ones_like(y) if grads is None else grads[i]
+        gs.append(torch.autograd.grad(y, (x, off, w), g))
+        outs.append(y.detach())
+    return outs, gs
+
+
+def deform_checks(label, model, batch, step_ms):
+    """The plain deformable conv on the card against the CPU on a 64x96
+    cut of the P2 map's input (offsets and kernel as the trained `model`'s
+    head passes them): output and gradients within 1e-4 of scale. Then its
+    forward and backward on every level at the step's shapes, timed with
+    CUDA events beside the step median `step_ms`, with the peak memory
+    they add."""
+    inputs = _deform_inputs(model, batch['image'])
+    x, off, w = inputs[0]
+    x, off = x[:, :64, :96].contiguous(), off[:, :64, :96].contiguous()
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    cot = torch.randn((*x.shape[:3], w.shape[-1]), generator=gen,
+                      device='cuda').to(x.dtype)
+    (card_y,), (card_g,) = _deform_fwd_bwd([(x, off, w)], [cot])
+    (cpu_y,), (cpu_g,) = _deform_fwd_bwd(
+        [tuple(v.cpu() for v in (x, off, w))], [cot.cpu()])
+    worst = 0.0
+    for name, g, r in zip(('out', 'd_x', 'd_offsets', 'd_weight'),
+                          (card_y,) + card_g, (cpu_y,) + cpu_g):
+        err = float((g.cpu().float() - r.float()).abs().max())
+        scale = max(float(r.float().abs().max()), 1e-6)
+        log(f'{label}: deform conv on a 64x96 cut of P2 card vs CPU {name} '
+            f'{tuple(g.shape)} max_abs_err {err:.3e} scale {scale:.3e}')
+        if not err <= DEFORM_TOL * scale:
+            raise RuntimeError(f'{label} deform conv {name}: card vs CPU '
+                               f'{err} > {DEFORM_TOL} x {scale}')
+        worst = max(worst, err / scale)
+    torch.cuda.synchronize()
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = time_ms(lambda: [deform_mod.batched_deform_conv2d(x, o, w)
+                              for x, o, w in inputs], 3, warmup=1)
+    both_ms = time_ms(lambda: _deform_fwd_bwd(inputs), 3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() - base
+    shapes = [tuple(x.shape) for x, _, _ in inputs]
+    log(f'{label}: deform conv over the five levels {shapes}, '
+        f'{str(inputs[0][0].dtype)[6:]}: forward {fwd_ms:.3f} ms, forward + '
+        f'backward {both_ms:.3f} ms = {100 * both_ms / step_ms:.1f}% of the '
+        f'step median {step_ms:.2f} ms; peak memory it adds '
+        f'{peak / 2**30:.2f} GiB (worst card vs CPU {worst:.2e} of scale)')
+    return both_ms, peak
+
+
+def _serve_fast_rcnn(card, run, rpn_bundle, stats):
+    """Fast R-CNN serving on the RPN's own proposals for the same images:
+    `prepare_batch`, the RPN's `predict`, then Fast R-CNN's, for 1 warm-up
+    and 2 timed requests; the box features launch the forward once a
+    request. Returns the bundle and the launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(run.config)
+    cfg.merge_from_dict(COCO_SERVING)
+    bundle = init_detector(cfg, device='cuda', seed=0)
+    rs = np.random.RandomState(0)
+    requests = [[rs.randint(0, 256, (1024, 2048, 3), dtype=np.uint8)
+                 for _ in range(2)] for _ in range(3)]
+    latencies, rpn_ms, n_dets = [], [], 0
+    for i, req in enumerate(requests):
+        if i == 1:
+            FWD.launches = BWD.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batch, samples = prepare_batch(bundle, req)
+        props = rpn_bundle.model.predict(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = bundle.model.predict(dict(
+            batch, proposals=props['dets'][..., :4],
+            proposals_valid=props['valid']))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        latencies.append(1e3 * (time.perf_counter() - t0))
+        rpn_ms.append(1e3 * (t1 - t0))
+        for j, sample in enumerate(samples if i else ()):
+            n_dets += _check_result(bbox2result(
+                out['dets'][j, :, :4] / np.asarray(sample['scale_factor']),
+                out['labels'][j], out['dets'][j, :, 4], out['valid'][j],
+                bundle.model.num_classes), (1024, 2048),
+                bundle.model.num_classes, 100,
+                bundle.model.roi_test_cfg.score_thr)
+        if i and (FWD.launches, BWD.launches) != (i * run.serving, 0):
+            raise RuntimeError(f'{run.label}: launches {FWD.launches}, '
+                               f'{BWD.launches} after {i} requests')
+    latencies, rpn_ms = latencies[1:], rpn_ms[1:]
+    peak = torch.cuda.max_memory_allocated()
+    log(f'{run.label} serving: 2 requests x 2 images 1024x2048 on the RPN\'s '
+        f'proposals -> {n_dets} dets; latency ms '
+        f'{[round(x, 2) for x in latencies]} (of which the RPN '
+        f'{[round(x, 2) for x in rpn_ms]}); peak memory {peak / 2**30:.2f} '
+        f'GiB [{card}]')
+    stats.update(latencies=latencies, peak=peak, dets=n_dets)
+    return bundle, {'roi_align_pyramid_fwd': FWD.launches,
+                    'roi_align_pyramid_bwd': BWD.launches}
+
+
+def phase_rpn_detectors(card, kernels):
+    """The proposal-network family at full width from its R50 configs
+    (800x1344, seeded weights): per run 2 requests, 1 warm-up and 2 timed
+    train steps on 2 images, launching the pair as RPN_FAMILY_RUNS counts;
+    every parameter but the stem and layer1 moved; Fast R-CNN fed the
+    RPN's own proposals; the pair held on GA-Faster's and CRPN-Faster's
+    sampled RoIs; the plain deformable conv card vs CPU and its share of a
+    GA-RPN and a Cascade RPN step. Then tiny R18 GA-Faster and CRPN-Faster
+    card vs CPU."""
+    rows, rpn_bundle = [], None
+    for run in RPN_FAMILY_RUNS:
+        stats = {}
+        # the 800x1344 canvas; the RoI heads at COCO_SERVING's threshold
+        overrides = dict(run.overrides, **(COCO_SERVING if run.serving else {
+            'data.test.pipeline': COCO_SERVING['data.test.pipeline']}))
+        if run.config == FAST_RCNN:
+            bundle, served = _serve_fast_rcnn(card, run, rpn_bundle, stats)
+        else:
+            bundle, _, served = _serve(
+                card, run.config, f'{run.label} serving',
+                {'roi_align_pyramid_fwd': (FWD, run.serving),
+                 'roi_align_pyramid_bwd': (BWD, 0)},
+                overrides=overrides, n_requests=2, stats=stats,
+                canvas=COCO_CANVAS,
+                score_floor=-1e-6 if run.proposals else None,
+                max_det=1000 if run.proposals else 100)
+        if not stats['dets']:
+            raise RuntimeError(f'{run.label}: no detection in any request')
+        dtype = bundle.model.dtype
+        if run.config == RPN_FPN:
+            rpn_bundle = bundle
+        del bundle
+        _free()
+        batch = fpn_level_batch(COCO_CANVAS)
+        if run.config == FAST_RCNN:
+            with torch.inference_mode():
+                props = rpn_bundle.model.predict(batch)
+            batch.update(proposals=props['dets'][..., :4].clone(),
+                         proposals_valid=props['valid'].clone())
+            rpn_bundle = None
+            _free()
+        trainer, state, start, times, totals, peak = _train(
+            card, run.config, COCO_STEPS, f'{run.label} train',
+            {'roi_align_pyramid_fwd': (FWD, run.step[0]),
+             'roi_align_pyramid_bwd': (BWD, run.step[1])},
+            batch, steps=2, keys=run.keys, overrides=run.overrides)
+        if trainer.model.dtype != dtype:
+            raise RuntimeError(f'{run.label}: trained in '
+                               f'{trainer.model.dtype}, served in {dtype}')
+        if dtype == torch.bfloat16:
+            adapt = [n for n, p in trainer.state.params.items()
+                     if p.dtype == torch.bfloat16]
+            if adapt != ['s2_adapt_w']:
+                raise RuntimeError(f'{run.label}: bf16 parameters {adapt}, '
+                                   "expected ['s2_adapt_w'] (as in JAX)")
+        moved = _moved(trainer.state.params, start, FPN_FROZEN, run.label)
+        med = float(np.median(times))
+        log(_train_summary(f'{run.label} train', f'{run.config} '
+                           f'{str(dtype)[6:]}', times, peak, totals, card,
+                           '2 images 800x1344')
+            + f'; {moved} parameters moved, stem and layer1 unchanged')
+        extra = ''
+        if run.config in (GA_RPN, CRPN):
+            d_ms, d_peak = deform_checks(run.label, trainer.model, batch, med)
+            extra = (f'; deform conv fwd+bwd {d_ms:.2f} ms '
+                     f'({100 * d_ms / med:.1f}% of the step), adds '
+                     f'{d_peak / 2**30:.2f} GiB')
+        if run.serving:
+            entries = rpn_family_kernels(run.label, trainer.model, batch,
+                                         run.timed)
+            for e in entries:
+                e['launches'] = served['roi_align_pyramid_fwd'] + \
+                    totals['roi_align_pyramid_fwd'] if '_fwd/' in e['name'] \
+                    else totals['roi_align_pyramid_bwd']
+            kernels += entries
+        rows.append(f'{run.label} {run.config} {str(dtype)[6:]}: request ms '
+                    f'mean {np.mean(stats["latencies"]):.2f} '
+                    f'{[round(t, 2) for t in stats["latencies"]]}, serving '
+                    f'peak {stats["peak"] / 2**30:.2f} GiB, launches a '
+                    f'request {run.serving}; step ms median {med:.2f} '
+                    f'{[round(t, 2) for t in times]}, train peak '
+                    f'{peak / 2**30:.2f} GiB, launches a step {run.step}'
+                    + extra)
+        del trainer, state, start, batch
+        _free()
+    for row in rows:
+        log(f'rpn detectors summary: {row} [{card}]')
+    for path in (GA_FASTER, CRPN_FASTER):
+        run = next(r for r in RPN_FAMILY_RUNS if r.config == path)
+        label = f'tiny {run.label} (R18)'
+        before = FWD.launches, BWD.launches
+        phase_reference(_tiny_cfg(path, RPN_FAMILY_TINY), label, (100, 150),
+                        RPN_FAMILY_TINY_SEED)
+        phase_reference_train(_tiny_cfg(path, RPN_FAMILY_TINY), label,
+                              (128, 192), 1, 32, RPN_FAMILY_TINY_SEED)
+        want = (run.serving + run.step[0], run.step[1])
+        got = (FWD.launches - before[0], BWD.launches - before[1])
+        if got != want:
+            raise RuntimeError(f'{label} on the card launched the pair '
+                               f'{got} times, expected {want}')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4375,6 +4756,7 @@ def main():
     phase_cascade(card, kernels)
     phase_gate3(card, kernels)
     phase_roi_variants(card, kernels)
+    phase_rpn_detectors(card, kernels)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from .torch_port_utils import JAX_PKG, PORT_PKG
+from .torch_port_utils import JAX_PKG, PORT_PKG, native_library
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SEG = ROOT / 'tests/data/synth_seg'
@@ -252,6 +252,7 @@ def _same_batches(got, ref, epochs=2):
 def test_mask_loader_batches_match_for_two_epochs():
     """The synth Mask R-CNN config's loader (56² rasters, flips, batch 8)
     over the committed test half, both packages, two epochs, exact."""
+    native_library()   # the JAX uint8 resize must be the native one
     tcfg, jcfg = _configs(MASK_CONFIG, seg_overrides(('data.train',)))
     spb = tcfg.data['samples_per_gpu']
     got = tdata.DataLoader(tdata.build_dataset(tcfg.data['train'], 'cpu'),
@@ -276,6 +277,7 @@ def test_ms_crop_pipeline_batches_match_jax_up_to_its_failure(tmp_path):
     than wide, resized to the policy's scales, exceeds the config's fixed
     canvas: both packages raise there, at the same sample, with the same
     error."""
+    native_library()   # the JAX uint8 resize must be the native one
     coco = json.loads((SEG / 'test.json').read_text())
     keep = {im['id'] for im in coco['images'][:8]}
     coco['images'] = coco['images'][:8]

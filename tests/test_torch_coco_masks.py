@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from .torch_port_utils import JAX_PKG, PORT_PKG
+from .torch_port_utils import JAX_PKG, PORT_PKG, native_library
 
 Image = pytest.importorskip('PIL.Image')
 ImageDraw = pytest.importorskip('PIL.ImageDraw')
@@ -312,6 +312,7 @@ def test_auto_augment_picks_policies_as_jax():
     one of two sub-policies (a multi-scale Resize; a Resize, a range crop
     that may leave no box, and a Resize), drawn from the dataset's
     generator in the JAX order."""
+    native_library()   # the JAX uint8 resize must be the native one
     policies = [
         [dict(type='Resize', img_scale=[(40, 100), (48, 100), (56, 100)],
               multiscale_mode='value', keep_ratio=True)],

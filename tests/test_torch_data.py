@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from .torch_port_utils import JAX_PKG, PORT_PKG, SYNTH_CONFIG, synth_overrides
+from .torch_port_utils import (JAX_PKG, PORT_PKG, SYNTH_CONFIG,
+                               native_library, synth_overrides)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TINY = 'configs/da/faster_rcnn_r18_tiny_fixture.py'
@@ -81,6 +82,7 @@ def _assert_same(got, ref, what=''):
 @pytest.mark.parametrize('name', ['tiny', 'synth'])
 @pytest.mark.parametrize('which', ['0', '1', 'val'])
 def test_datasets_match(name, which):
+    native_library()   # the JAX uint8 resize must be the native one
     tcfg, jcfg = _configs(name)
     got = tdata.build_dataset(_split(tcfg, which), 'cpu')
     ref = jdata.build_dataset(_split(jcfg, which))
@@ -142,6 +144,7 @@ def test_each_train_transform_matches_with_the_same_draws(name):
     """The train pipeline one transform at a time, on several images of
     one dataset, both sides drawing from RandomStates in the same state:
     results and RNG states equal after every step."""
+    native_library()   # the JAX uint8 resize must be the native one
     tcfg, jcfg = _configs(name)
     tds = tdata.build_dataset(_split(tcfg, '0'), 'cpu')
     jds = jdata.build_dataset(_split(jcfg, '0'))
@@ -173,6 +176,7 @@ def test_multiscale_resize_matches(mode, scales, ratio):
     the same sizes and boxes on both sides; images within one grey level
     (the JAX resize is its native C++ one, the port's copies its
     algorithm)."""
+    native_library()   # the JAX uint8 resize must be the native one
     rs = np.random.RandomState(0)
     t_rng, j_rng = np.random.RandomState(7), np.random.RandomState(7)
     kw = dict(img_scale=scales, multiscale_mode=mode, ratio_range=ratio)
@@ -261,6 +265,7 @@ def test_group_sampler_indices_match(size, batch, shuffle, drop_last):
 def test_loader_batches_match_for_two_epochs(name):
     """The two-stream loaders of both packages, same config and seed: two
     epochs of batches, every key exact (image included)."""
+    native_library()   # the JAX uint8 resize must be the native one
     tcfg, jcfg = _configs(name)
     spb = tcfg.data['samples_per_gpu']
     got = tdata.DataLoader(tdata.build_dataset(tcfg.data['train'], 'cpu'),
@@ -281,6 +286,7 @@ def test_the_test_loader_and_a_failing_sample():
     """An in-order loader over the val set fills its last batch from the
     start, as the JAX one; an error inside the background thread reaches
     the caller."""
+    native_library()   # the JAX uint8 resize must be the native one
     tcfg, jcfg = _configs('tiny')
     tds = tdata.build_dataset(tcfg.data['val'], 'cpu')
     jds = jdata.build_dataset(jcfg.data['val'])

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from .torch_port_utils import JAX_PKG, PORT_PKG
+from .torch_port_utils import JAX_PKG, PORT_PKG, native_library
 
 jtf = importlib.import_module(f'{JAX_PKG}.data.pipelines.transforms')
 jbuilder = importlib.import_module(f'{JAX_PKG}.data.builder')
@@ -23,6 +23,7 @@ tdata = importlib.import_module(f'{PORT_PKG}.data')
                                            ((50, 70), (131, 93)),
                                            ((300, 200), (41, 61))])
 def test_imresize_within_one_grey_level(src_hw, dst_wh):
+    native_library()   # the JAX uint8 resize must be the native one
     img = np.random.RandomState(sum(src_hw)).randint(
         0, 256, src_hw + (3,)).astype(np.uint8)
     ref = jtf._imresize(img, dst_wh)
@@ -53,6 +54,7 @@ def test_imresize_of_a_float_image_follows_cv2(src_hw, dst_wh):
 
 
 def test_test_pipeline_and_collate_match():
+    native_library()   # the JAX uint8 resize must be the native one
     rs = np.random.RandomState(0)
     imgs = [rs.randint(0, 256, hw + (3,)).astype(np.uint8)
             for hw in ((90, 160), (130, 95))]

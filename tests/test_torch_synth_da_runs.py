@@ -41,9 +41,16 @@ TABLE = {
                     [12]),
     'grid': (('shapes_clear',), 'shapes_clear', 'GridRCNN', 15, [12]),
     'dynamic': (('shapes_clear',), 'shapes_clear', 'DynamicRCNN', 30, [12]),
+    'crpn_faster': (('shapes_clear',), 'shapes_clear', 'CRPNFasterRCNN', 15,
+                    [12]),
+    'ga_faster': (('shapes_clear',), 'shapes_clear', 'GAFasterRCNN', 15,
+                  [12]),
+    'ga_retina': (('shapes_clear',), 'shapes_clear', 'GARetinaNet', 15,
+                  [12]),
 }
 # the rows whose RPN and box heads keep mmdet's init scale
-MMDET_ROWS = ('cascade', 'fpn', 'double_head', 'dynamic')
+MMDET_ROWS = ('cascade', 'fpn', 'double_head', 'dynamic', 'crpn_faster',
+              'ga_retina')
 
 
 def _row_configs(name):

@@ -7,7 +7,13 @@ same numpy values.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import fcntl
+import importlib
+import importlib.util
 import os
+import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -27,6 +33,70 @@ def _share_the_cores():
 
 
 _share_the_cores()
+
+
+def _native_reason(native) -> str:
+    """Why the JAX package's native library does not load: `g++`'s error
+    on its sources, or the loader's on the library it builds."""
+    nat = os.path.join(os.path.dirname(native.__file__), '..', 'native')
+    srcs = [os.path.join(nat, 'tpfp.cpp'), os.path.join(nat, 'imageproc.cpp')]
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, 'libudaod_native.so')
+        try:
+            run = subprocess.run(
+                ['g++', '-O3', '-shared', '-fPIC', '-std=c++17', '-fopenmp',
+                 *srcs, '-o', so], capture_output=True, text=True)
+        except OSError as e:
+            return f'g++ did not run: {e}'
+        if run.returncode:
+            return f'g++ exited {run.returncode}: {run.stderr.strip()}'
+        try:
+            ctypes.CDLL(so)
+        except OSError as e:
+            return f'g++ built it, but it does not load: {e}'
+    return 'g++ builds and loads it here; the cached copy fails'
+
+
+def native_library():
+    """The JAX package's native C++ library (`utils/native.py`, which the
+    JAX `_imresize` uses for uint8 images), built and loaded under an
+    `fcntl.flock` on a lock file beside the cached `.so`. The JAX module
+    builds it on its first call in each process, with no lock, and gives up
+    for the rest of the process on any error: xdist workers that start
+    together on a cold cache read each other's half-written file, and their
+    uint8 resizes fall back to cv2's (no antialias). Under the lock one
+    process builds and the others load the finished file. Should the load
+    still fail, the JAX module's state is reset and the build retried under
+    the lock; a second failure raises with `g++`'s reason."""
+    native = importlib.import_module(f'{JAX_PKG}.utils.native')
+    if native._LIB is not None:
+        return native._LIB
+    cache = os.path.join(os.environ.get('XDG_CACHE_HOME',
+                                        os.path.expanduser('~/.cache')),
+                         'udaod_tpu')
+    os.makedirs(cache, exist_ok=True)
+    with open(os.path.join(cache, 'libudaod_native.lock'), 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            for _ in range(2):
+                native._TRIED, native._LIB = False, None
+                if native.has_native():
+                    return native._LIB
+            raise RuntimeError('the JAX package has no native library, so '
+                               'its uint8 resize is not the one the port '
+                               f'copies: {_native_reason(native)}')
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+# the first build and load of each process happen under the lock (where
+# the JAX package is installed: the card's machine has none); a failure
+# shows again, with its reason, in the tests that need the library
+if importlib.util.find_spec('jax') is not None:
+    try:
+        native_library()
+    except RuntimeError:
+        pass
 
 # the intra-op thread count at which the tiny DAF-family train steps were
 # held to JAX: their updates sit within 1e-4 of scale of JAX's at 8

@@ -2,7 +2,7 @@
 `data/pipelines/transforms.py`: `LoadImageFromFile`, `LoadAnnotations`
 with box-frame mask rasters, keep-ratio and multi-scale `Resize`,
 `RandomFlip`, `RandomCrop`, `PhotoMetricDistortion`, `Normalize`, `Pad`,
-`PackDetInputs`, `MultiScaleFlipAug`, `Compose`).
+`PackDetInputs`, `MultiScaleFlipAug`, `Compose`, `LoadProposals`).
 
 Each transform is a callable on a `results` dict whose `img` is an (H, W, 3)
 RGB torch tensor — uint8 until `Normalize`, float32 after — on the device
@@ -431,6 +431,31 @@ class PackDetInputs:
             domain=np.asarray(results.get('domain', 0), np.int32),
             **extra,
         )
+
+
+@PIPELINES.register_module()
+class LoadProposals:
+    """Precomputed proposals (`results['proposals']`, (n, 4) or (n, 5) with
+    a score column, from the dataset, e.g. a saved RPN run) padded or cut
+    to `num_max_proposals` rows, with `proposals_valid`; host numpy, as the
+    gt blocks. `PackDetInputs` does not carry them, as in the JAX package,
+    so a Fast R-CNN config's first step raises."""
+
+    def __init__(self, num_max_proposals: int = 1000):
+        self.num_max = num_max_proposals
+
+    def __call__(self, results):
+        props = np.asarray(results.get('proposals',
+                                       np.zeros((0, 4), np.float32)),
+                           np.float32)
+        if props.shape[-1] == 5:
+            props = props[:, :4]
+        n = min(len(props), self.num_max)
+        out = np.zeros((self.num_max, 4), np.float32)
+        out[:n] = props[:n]
+        results['proposals'] = out
+        results['proposals_valid'] = np.arange(self.num_max) < n
+        return results
 
 
 @PIPELINES.register_module()

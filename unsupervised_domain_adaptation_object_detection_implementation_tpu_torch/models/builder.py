@@ -48,7 +48,7 @@ from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
 from .detectors import (cascade_rcnn,  # noqa: F401 (register)
                         cyda_faster_rcnn, da_faster_rcnn, faster_rcnn,
                         faster_rcnn_fpn, htc, mask_rcnn, mask_rcnn_c4,
-                        roi_variants, scnet)
+                        roi_variants, rpn_detectors, scnet)
 from .detectors.faster_rcnn import AnchorConfig
 from .layers.precision import compute_dtype
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
@@ -83,6 +83,13 @@ _REFERENCE_DETECTOR_MAP = {
     'GridRCNN': ('GridRCNN', {}),
     'MaskScoringRCNN': ('MaskScoringRCNN', {}),
     'PointRend': ('PointRend', {}),
+    'RPN': ('RPN', {}),
+    'FastRCNN': ('FastRCNN', {}),
+    'GARPN': ('GARPN', {}),
+    'GARetinaNet': ('GARetinaNet', {}),
+    'GAFasterRCNN': ('GAFasterRCNN', {}),
+    'CascadeRPN': ('CascadeRPN', {}),
+    'CRPNFasterRCNN': ('CRPNFasterRCNN', {}),
 }
 
 # reference bbox_head.loss_bbox types that decode boxes (the IoU family);

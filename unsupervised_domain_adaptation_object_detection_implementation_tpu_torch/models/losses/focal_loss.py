@@ -1,6 +1,7 @@
 """Sigmoid focal loss (counterpart of the JAX package's
 `models/losses/focal_loss.py:sigmoid_focal_loss`). Heads emit logits and the
-loss applies the sigmoid once."""
+loss applies the sigmoid once. At a logit of exactly 0 the gradient is
+JAX's (`jnp.maximum`'s one half, `jnp.abs`'s +1)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from .utils import one_hot, weight_reduce_loss
+from .utils import jax_abs, jax_max, one_hot, weight_reduce_loss
 
 
 def sigmoid_focal_loss(logits: torch.Tensor,
@@ -26,8 +27,8 @@ def sigmoid_focal_loss(logits: torch.Tensor,
     p = torch.sigmoid(logits)
     pt = (1 - p) * onehot + p * (1 - onehot)
     focal_weight = (alpha * onehot + (1 - alpha) * (1 - onehot)) * pt**gamma
-    bce = torch.clamp(logits, min=0) - logits * onehot + torch.log1p(
-        torch.exp(-logits.abs()))
+    bce = jax_max(logits, 0) - logits * onehot + torch.log1p(
+        torch.exp(-jax_abs(logits)))
     loss = bce * focal_weight
     if weight is not None and weight.dim() == logits.dim() - 1:
         weight = weight[..., None]

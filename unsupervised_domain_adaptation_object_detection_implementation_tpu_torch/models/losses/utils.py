@@ -20,6 +20,17 @@ def one_hot(labels: torch.Tensor, num_classes: int,
     return (labels[..., None] == classes).to(dtype)
 
 
+def jax_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with `jnp.abs`'s gradient at 0, +1 (torch's `abs` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def jax_max(x: torch.Tensor, floor: float) -> torch.Tensor:
+    """max(x, floor) with `jnp.maximum`'s gradient where x == floor, one
+    half (torch's `clamp` gives 1)."""
+    return torch.maximum(x, x.new_tensor(floor))
+
+
 def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == 'none':
         return loss

@@ -13,6 +13,7 @@ from .layers.attention import MHSA
 from .backbones.swin import WindowAttention
 from .layers.norm import BatchNorm, FrozenBatchNorm, GroupNorm, LayerNorm
 from .detectors.roi_variants import DoubleBBoxHead
+from .detectors.rpn_detectors import init_adaptive_heads_
 from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
 
@@ -51,7 +52,12 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
     predictor's raw kernel too, over its input channels). `generator`
     lives on the model's device. `heads='lecun'` leaves the RPN and box
     heads at the lecun scale, as the JAX package draws every layer (the
-    draws before them are the same)."""
+    draws before them are the same). The Guided Anchoring and Cascade RPN
+    layers then get the JAX package's own init
+    (`rpn_detectors.init_adaptive_heads_`: the adaptive convs' kernels at
+    flax's `he_normal` scale, the offset convs zero, the GA logits' bias
+    −4.595), their prediction convs at mmdet's std 0.01 unless `heads` is
+    'lecun'."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -85,4 +91,5 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
             continue
         for layer, std in layers:
             layer.weight.normal_(0.0, std, generator=generator)
+    init_adaptive_heads_(model, generator, heads)
     return model

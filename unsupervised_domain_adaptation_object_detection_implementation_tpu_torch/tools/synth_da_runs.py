@@ -1,7 +1,8 @@
 """The synth clear→foggy rows on a CUDA card: the three-row UDAOD
 protocol (source-only, DAF + clip + EMA, oracle), SWDA, and the zoo rows
-(Cascade R-CNN, R18-FPN, Double-Head, Grid and Dynamic R-CNN), each beside
-the JAX package's figure.
+(Cascade R-CNN, R18-FPN, Double-Head, Grid and Dynamic R-CNN, CRPN-Faster
+R-CNN, GA-Faster R-CNN, GA-RetinaNet), each beside the JAX package's
+figure.
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.synth_da_runs \
         <row> [<row> ...] [--seed 0] [--max-epochs k] [--resume-from <ckpt>] \
@@ -73,7 +74,7 @@ ZOO = 'configs/da/synth_zoo_smoke.py'
 # rows did (flax's default for every layer): at mmdet's scale the port's
 # DAF and oracle rows missed their JAX figures and DAF fell to source-only
 # (PERF.md, gate 3); the zoo rows keep mmdet's (their lr is 0.01), but
-# for Grid R-CNN
+# for Grid R-CNN and GA-Faster R-CNN
 LECUN = {'random_init.heads': 'lecun'}
 ROWS = {
     'source_only': Row('configs/da/faster_rcnn_r18_synth_source_only.py',
@@ -112,6 +113,18 @@ ROWS = {
                          'runner.max_epochs': '30'},
                    'train', (('shapes_clear', 'train'),), 'shapes_clear',
                    0.366, 'docs/RESULTS.md:311, :693'),
+    'crpn_faster': Row(ZOO, {'model.type': 'CRPNFasterRCNN'}, 'train',
+                       (('shapes_clear', 'train'),), 'shapes_clear', 0.938,
+                       'docs/RESULTS.md:696'),
+    # GA-Faster R-CNN's heads at the lecun scale: at mmdet's its GA-RPN
+    # learned unstably and the row missed (PERF.md §6, the proposal family)
+    'ga_faster': Row(ZOO, dict(LECUN, **{'model.type': 'GAFasterRCNN'}),
+                     'train',
+                     (('shapes_clear', 'train'),), 'shapes_clear', 0.528,
+                     'docs/RESULTS.md:681'),
+    'ga_retina': Row('configs/da/synth_ga_retina_smoke.py', {}, 'train',
+                     (('shapes_clear', 'train'),), 'shapes_clear', 0.554,
+                     'docs/RESULTS.md:679'),
 }
 
 

@@ -18,7 +18,11 @@
 - raw parameters keep their names and layouts: the normed mask
   predictor's `conv_logits_kernel` (C, K), MHSA's relative position
   terms `rel_h` (h, 1, c) and `rel_w` (1, w, c), and the Swin windows'
-  relative position bias table `rel_bias` ((2ws−1)², heads).
+  relative position bias table `rel_bias` ((2ws−1)², heads), and the
+  Guided Anchoring and Cascade RPN adaptive convs' HWIO kernels
+  `adapt_conv_w` / `s2_adapt_w` (kh, kw, C, Co), which the port's
+  deformable conv takes as they are (bf16 at `dtype=bfloat16`, as the JAX
+  package makes them).
 
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
@@ -30,8 +34,9 @@ JAX names as modules of their own (`bbox_head_0` … `bbox_head_2`,
 reads them in) and `scnet_mask_head`. Leaves with no counterpart in the
 model are returned, not dropped silently; for every detector the port
 has (each DA variant, CyDA and CyCADA, the Swin trunk, the cascade
-family and the RoI-head variants' `DoubleBBoxHead`, `GridHead`,
-`MaskIoUHead` and `PointHead` included) there are none.
+family, the RoI-head variants' `DoubleBBoxHead`, `GridHead`,
+`MaskIoUHead` and `PointHead`, and the proposal-network family included)
+there are none.
 """
 
 from __future__ import annotations
@@ -64,11 +69,19 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], leaf: Any
         if name == 'kernel' and value.ndim == 2:
             return f'{prefix}weight', value.T
         if name in ('bias', 'scale', 'conv_logits_kernel', 'rel_h', 'rel_w',
-                    'rel_bias'):
+                    'rel_bias', 'adapt_conv_w', 's2_adapt_w'):
             return prefix + name, value
     elif collection == 'batch_stats' and name in ('mean', 'var'):
         return prefix + name, value
     return None, value
+
+
+def _tensor(value: np.ndarray) -> torch.Tensor:
+    """A torch copy of a numpy leaf; bfloat16 leaves (numpy has no such
+    type of its own) pass through float32, exactly."""
+    if value.dtype.name == 'bfloat16':
+        return torch.from_numpy(value.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(value, copy=True))
 
 
 def from_jax_variables(tree: Mapping, model: nn.Module
@@ -86,7 +99,7 @@ def from_jax_variables(tree: Mapping, model: nn.Module
                     or tuple(target[key].shape) != value.shape:
                 unmapped.append('/'.join((collection,) + path))
                 continue
-            state[key] = torch.from_numpy(np.array(value, copy=True))
+            state[key] = _tensor(value)
     return state, unmapped
 
 

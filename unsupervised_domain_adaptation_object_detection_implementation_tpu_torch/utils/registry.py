@@ -88,6 +88,7 @@ BACKBONES = Registry('backbones', parent=MODELS)
 NECKS = Registry('necks', parent=MODELS)
 HEADS = Registry('heads', parent=MODELS)
 DETECTORS = Registry('detectors', parent=MODELS)
+LOSSES = Registry('losses', parent=MODELS)
 PIPELINES = Registry('pipelines')
 DATASETS = Registry('datasets')
 ANCHOR_GENERATORS = Registry('anchor_generators')
