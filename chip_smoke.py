@@ -326,6 +326,26 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    beside a GA-RPN and a Cascade RPN step, with the memory it adds. Last,
    tiny R18 GA-Faster and CRPN-Faster card vs CPU: detections within
    1e-3, one train step's losses within 1e-4 relative.
+27. one stage — the one-stage core from its R50 configs at full width
+   (seeded weights, 800x1344): configs/retinanet/retinanet_r50_fpn_1x.py
+   and its fp16 row (trains in bf16), configs/ghm/retinanet_ghm_r50_fpn_1x.py,
+   configs/fcos/fcos_r50_fpn_1x.py, the center-sampling GIoU row
+   fcos_center-normbbox-centeronreg-giou_r50_caffe_fpn_gn-head_1x.py and
+   its _dcn_1x.py (a deformable last conv in both towers),
+   configs/atss/atss_r50_fpn_1x.py, configs/gfl/gfl_r50_fpn_1x.py and
+   configs/paa/paa_r50_fpn_1x.py: 2 requests of 2 Cityscapes-size images
+   (at score_thr 0.001: the seeded classifiers start at sigmoid 0.01) and 1
+   warm-up and 2 timed train steps on 2 images 800x1344 with 16 gt boxes
+   over the levels, finite losses under the JAX keys, every parameter but
+   the stem and layer1 moved; no request or step launches the pair (none
+   of the five reaches RoIAlign). The serving top-k over RetinaNet's
+   anchor x class scores is timed on a request's scores; the FCOS DCN
+   head's plain deformable conv is held card vs CPU on a 64x96 cut of P3
+   and timed over both towers and five levels beside the step, with the
+   memory it adds. Last, tiny R18 RetinaNet, FCOS-DCN, GFL and PAA card vs
+   CPU (detections within 1e-3; one train step's losses within 1e-4
+   relative and parameters within 1e-4 of scale), and a tiny bf16
+   RetinaNet's head outputs card vs CPU within 2e-2 of their scale.
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -374,6 +394,12 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     roi_variants as variants_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
     rpn_detectors as rpn_mod
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
+    retinanet as retina_mod
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers import \
+    plugins as plugins_mod
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.core.post.nms import \
+    topk_stable
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors.mask_rcnn import \
     paste_masks
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers.norm import \
@@ -4496,22 +4522,25 @@ def rpn_family_kernels(label, model, batch, timed):
 
 
 def _deform_inputs(model, image):
-    """Per level, the adaptive conv's NHWC input, offsets and kernel as the
-    model's head passes them (GA's, or Cascade RPN's stage 2), recorded
-    from one forward of the trunk, neck and head."""
-    seen, plain = [], rpn_mod.batched_deform_conv2d
+    """Per call, the deformable conv's NHWC input, offsets and HWIO kernel
+    as the model passes them (GA's adaptive conv, Cascade RPN's stage 2,
+    or each tower's DCN of FCOS's head, per level), recorded from one
+    forward of the trunk, neck and head."""
+    head = isinstance(getattr(model, 'bbox_head', None), retina_mod.TowerHead)
+    mod = plugins_mod if head else rpn_mod
+    seen, plain = [], mod.batched_deform_conv2d
 
     def record(x, off, weight, *args, **kwargs):
-        seen.append((x.contiguous(), off.contiguous(), weight))
+        seen.append((x.contiguous(), off.contiguous(), weight.contiguous()))
         return plain(x, off, weight, *args, **kwargs)
 
-    rpn_mod.batched_deform_conv2d = record
+    mod.batched_deform_conv2d = record
     try:
         with torch.no_grad():
-            (model._flat if hasattr(model, 'ga_head') else model._stages)(
-                image)
+            (model._flat if head or hasattr(model, 'ga_head')
+             else model._stages)(image)
     finally:
-        rpn_mod.batched_deform_conv2d = plain
+        mod.batched_deform_conv2d = plain
     return seen
 
 
@@ -4549,7 +4578,8 @@ def deform_checks(label, model, batch, step_ms):
                           (card_y,) + card_g, (cpu_y,) + cpu_g):
         err = float((g.cpu().float() - r.float()).abs().max())
         scale = max(float(r.float().abs().max()), 1e-6)
-        log(f'{label}: deform conv on a 64x96 cut of P2 card vs CPU {name} '
+        log(f'{label}: deform conv on a 64x96 cut of its first map card vs '
+            f'CPU {name} '
             f'{tuple(g.shape)} max_abs_err {err:.3e} scale {scale:.3e}')
         if not err <= DEFORM_TOL * scale:
             raise RuntimeError(f'{label} deform conv {name}: card vs CPU '
@@ -4564,7 +4594,7 @@ def deform_checks(label, model, batch, step_ms):
     both_ms = time_ms(lambda: _deform_fwd_bwd(inputs), 3, warmup=1)
     peak = torch.cuda.max_memory_allocated() - base
     shapes = [tuple(x.shape) for x, _, _ in inputs]
-    log(f'{label}: deform conv over the five levels {shapes}, '
+    log(f'{label}: deform conv over the {len(inputs)} calls {shapes}, '
         f'{str(inputs[0][0].dtype)[6:]}: forward {fwd_ms:.3f} ms, forward + '
         f'backward {both_ms:.3f} ms = {100 * both_ms / step_ms:.1f}% of the '
         f'step median {step_ms:.2f} ms; peak memory it adds '
@@ -4725,6 +4755,169 @@ def phase_rpn_detectors(card, kernels):
                                f'{got} times, expected {want}')
 
 
+# ---- the one-stage core: RetinaNet (focal, bf16, GHM-C), FCOS (plain,
+# center sampling, DCN head), ATSS, GFL, PAA --------------------------------
+
+RETINA = 'configs/retinanet/retinanet_r50_fpn_1x.py'
+RETINA_FP16 = 'configs/retinanet/retinanet_r50_fpn_fp16_1x.py'
+RETINA_GHM = 'configs/ghm/retinanet_ghm_r50_fpn_1x.py'
+FCOS_PLAIN = 'configs/fcos/fcos_r50_fpn_1x.py'
+FCOS_CENTER = ('configs/fcos/fcos_center-normbbox-centeronreg-giou_r50_'
+               'caffe_fpn_gn-head_1x.py')
+FCOS_DCN = FCOS_CENTER.replace('_1x.py', '_dcn_1x.py')
+ATSS_CFG = 'configs/atss/atss_r50_fpn_1x.py'
+GFL_CFG = 'configs/gfl/gfl_r50_fpn_1x.py'
+PAA_CFG = 'configs/paa/paa_r50_fpn_1x.py'
+CTR_KEYS = {'loss_cls', 'loss_bbox', 'loss_centerness'}
+# (label, config, loss keys)
+ONE_STAGE_RUNS = (
+    ('retinanet', RETINA, BOX_KEYS),
+    ('retinanet fp16', RETINA_FP16, BOX_KEYS),
+    ('retinanet ghm', RETINA_GHM, BOX_KEYS),
+    ('fcos', FCOS_PLAIN, CTR_KEYS),
+    ('fcos center', FCOS_CENTER, CTR_KEYS),
+    ('fcos dcn', FCOS_DCN, CTR_KEYS),
+    ('atss', ATSS_CFG, CTR_KEYS),
+    ('gfl', GFL_CFG, {'loss_cls', 'loss_bbox', 'loss_dfl'}),
+    ('paa', PAA_CFG, {'loss_cls', 'loss_bbox', 'loss_iou'}))
+# serving on the 800x1344 canvas; the seeded classifiers' bias puts every
+# score near 0.01, under the configs' 0.05
+ONE_STAGE_SERVING = {
+    'data.test.pipeline': COCO_SERVING['data.test.pipeline'],
+    'model.test_cfg': dict(score_thr=0.001)}
+# the tiny card-vs-CPU references: R18, 2 classes, the heads at the lecun
+# scale (scores spread apart), the top 64 scores served; a weight seed
+# each whose 66 top scores on the reference images lie >= 4.7e-5 apart,
+# relatively (a CPU count); the ATSS assignment of the train batch sits
+# 2.7e-2 from its IoU threshold and PAA's mixture split moves no candidate
+# under a 1e-5 change of the losses
+ONE_STAGE_TINY = {'model.backbone_depth': 18, 'model.num_classes': 2,
+                  'random_init.heads': 'lecun',
+                  'model.test_cfg': dict(nms_pre=64, max_per_img=32,
+                                         score_thr=0.001),
+                  'data.test.pipeline': [dict(type='MultiScaleFlipAug',
+                                              img_scale=(192, 128))]}
+ONE_STAGE_TINY_SEEDS = {RETINA: 1, FCOS_DCN: 2, GFL_CFG: 4, PAA_CFG: 2}
+BF16_HEAD_TOL = 2e-2
+
+
+def _flat_scores(model, batch):
+    """RetinaNet's (B, anchors x classes) sigmoid scores of `batch`, as
+    `predict` ranks them."""
+    with torch.inference_mode():
+        cls, _, _ = model._flat(batch['image'])
+        return torch.sigmoid(cls).reshape(cls.shape[0], -1)
+
+
+def _time_topk(card, bundle, request):
+    """The serving top-k (`topk_stable`, nms_pre of the anchor x class
+    scores) on a request's scores, beside `torch.topk` (not its tie order:
+    the library's time only)."""
+    batch, _ = prepare_batch(bundle, request)
+    flat = _flat_scores(bundle.model, batch)
+    k = bundle.model.test_cfg.nms_pre
+    ms = time_ms(lambda: topk_stable(flat, k), 5)
+    lib = time_ms(lambda: torch.topk(flat, k, dim=-1), 5)
+    log(f'retinanet serving: top-{k} of {tuple(flat.shape)} scores '
+        f'(topk_stable, a stable sort) {ms:.3f} ms, torch.topk {lib:.3f} ms '
+        f'[{card}]')
+    return ms
+
+
+def _bf16_head_check(label, path, seed):
+    """A tiny bf16 detector's head outputs (`_flat`) on the card against
+    the CPU's from the same weights, TF32 off: each within BF16_HEAD_TOL of
+    its scale (tied bf16 logits reorder a top-k, so detections are not
+    compared)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_cfg(path, dict(ONE_STAGE_TINY, **BF16))
+    cpu, card = (init_detector(cfg, device='cpu', seed=seed)
+                 for _ in range(2))
+    card = card._replace(model=card.model.to('cuda'),
+                         device=torch.device('cuda'))
+    rs = np.random.RandomState(1)
+    imgs = [rs.randint(0, 256, (100, 150, 3), dtype=np.uint8)
+            for _ in range(2)]
+    outs = []
+    for bundle in (cpu, card):
+        batch, _ = prepare_batch(bundle, imgs)
+        with torch.inference_mode():
+            outs.append([t.float().cpu() for t in
+                         bundle.model._flat(batch['image'])[:2]])
+    for name, r, g in zip(('cls', 'reg'), *outs):
+        err = float((g - r).abs().max())
+        scale = float(r.abs().max())
+        log(f'reference: {label} bf16 {name} {tuple(r.shape)} card vs CPU '
+            f'max_abs_err {err:.3e} scale {scale:.3e}')
+        if not err <= BF16_HEAD_TOL * scale:
+            raise RuntimeError(f'{label} bf16 {name}: card vs CPU {err} > '
+                               f'{BF16_HEAD_TOL} x {scale}')
+
+
+def phase_one_stage(card):
+    """The one-stage core at full width from its R50 configs (800x1344,
+    seeded weights): per run 2 requests and 1 warm-up + 2 timed train
+    steps on 2 images, none launching the pair; every parameter but the
+    stem and layer1 moved; the serving top-k timed on RetinaNet's scores;
+    the FCOS DCN head's deformable conv card vs CPU and its share of the
+    step. Then the tiny R18 references card vs CPU. Adds no kernel entry:
+    none of the five detectors reaches RoIAlign."""
+    none = {'roi_align_pyramid_fwd': (FWD, 0),
+            'roi_align_pyramid_bwd': (BWD, 0)}
+    rows = []
+    for label, path, keys in ONE_STAGE_RUNS:
+        stats = {}
+        bundle, requests, _ = _serve(
+            card, path, f'{label} serving', none,
+            overrides=ONE_STAGE_SERVING, n_requests=2, stats=stats,
+            canvas=COCO_CANVAS)
+        if not stats['dets']:
+            raise RuntimeError(f'{label}: no detection in any request')
+        topk = _time_topk(card, bundle, requests[-1]) \
+            if path == RETINA else None
+        del bundle, requests
+        _free()
+        batch = fpn_level_batch(COCO_CANVAS)
+        trainer, state, start, times, totals, peak = _train(
+            card, path, COCO_STEPS, f'{label} train', none, batch, steps=2,
+            keys=keys)
+        moved = _moved(trainer.state.params, start, FPN_FROZEN, label)
+        med = float(np.median(times))
+        dtype = str(trainer.model.dtype)[6:]
+        log(_train_summary(f'{label} train', f'{path} {dtype}', times, peak,
+                           totals, card, '2 images 800x1344')
+            + f'; {moved} parameters moved, stem and layer1 unchanged')
+        extra = '' if topk is None else f'; serving top-k {topk:.2f} ms'
+        if path == FCOS_DCN:
+            d_ms, d_peak = deform_checks(label, trainer.model, batch, med)
+            extra = (f'; deform conv fwd+bwd {d_ms:.2f} ms '
+                     f'({100 * d_ms / med:.1f}% of the step), adds '
+                     f'{d_peak / 2**30:.2f} GiB')
+        rows.append(f'{label} {path} {dtype}: request ms mean '
+                    f'{np.mean(stats["latencies"]):.2f} '
+                    f'{[round(t, 2) for t in stats["latencies"]]}, serving '
+                    f'peak {stats["peak"] / 2**30:.2f} GiB; step ms median '
+                    f'{med:.2f} {[round(t, 2) for t in times]}, train peak '
+                    f'{peak / 2**30:.2f} GiB' + extra)
+        del trainer, state, start, batch
+        _free()
+    for row in rows:
+        log(f'one stage summary: {row} [{card}]')
+    before = FWD.launches, BWD.launches
+    for path, seed in ONE_STAGE_TINY_SEEDS.items():
+        label = f'tiny {path.split("/")[-1][:-3]} (R18)'
+        phase_reference(_tiny_cfg(path, ONE_STAGE_TINY), label, (100, 150),
+                        seed)
+        phase_reference_train(_tiny_cfg(path, ONE_STAGE_TINY), label,
+                              (128, 192), 1, 1, seed)
+    _bf16_head_check('tiny retinanet (R18)', RETINA, ONE_STAGE_TINY_SEEDS[
+        RETINA])
+    if (FWD.launches, BWD.launches) != before:
+        raise RuntimeError('the one-stage references launched the RoIAlign '
+                           'pair')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4757,6 +4950,7 @@ def main():
     phase_gate3(card, kernels)
     phase_roi_variants(card, kernels)
     phase_rpn_detectors(card, kernels)
+    phase_one_stage(card)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

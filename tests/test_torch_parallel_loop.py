@@ -76,7 +76,8 @@ def _rel(got, ref, tol):
 
 CASES = ['batch_norm', 'grouped_instance_loss', 'split_plain', 'rpn_loss',
          'bbox_loss', 'mask_loss', 'consistency_loss',
-         'global_alignment_loss', 'gan_losses']
+         'global_alignment_loss', 'gan_losses',
+         *workers.ONE_STAGE_CASES]
 
 
 @pytest.fixture(scope='module')

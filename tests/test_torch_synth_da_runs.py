@@ -47,6 +47,11 @@ TABLE = {
                   [12]),
     'ga_retina': (('shapes_clear',), 'shapes_clear', 'GARetinaNet', 15,
                   [12]),
+    **{name: (('shapes_clear',), 'shapes_clear', model_type, 15, [12])
+       for name, model_type in (
+           ('retinanet', 'RetinaNet'), ('retinanet_fit', 'RetinaNet'),
+           ('fcos', 'FCOS'), ('atss', 'ATSS'), ('gfl', 'GFL'),
+           ('gfl_fit', 'GFL'), ('paa', 'PAA'))},
 }
 # the rows whose RPN and box heads keep mmdet's init scale
 MMDET_ROWS = ('cascade', 'fpn', 'double_head', 'dynamic', 'crpn_faster',
@@ -174,9 +179,9 @@ def test_lecun_head_scale_is_an_option_the_da_rows_take():
     """`random_init.heads=lecun` leaves the RPN convs and the box head's
     classifier and regressor at the lecun scale (std 1/sqrt(fan_in)), as
     the JAX package draws them; the default redraws them at mmdet's
-    (0.01, 0.01, 0.001); every other tensor is the same draw. The DA rows
-    and the Grid R-CNN row ask for it, the other zoo rows do not, and
-    another value raises."""
+    (0.01, 0.01, 0.001); every other tensor is the same draw. The DA rows,
+    Grid R-CNN, GA-Faster R-CNN and the one-stage rows ask for it, the
+    other zoo rows (`MMDET_ROWS`) do not, and another value raises."""
     ttrain = importlib.import_module(f'{PORT_PKG}.apis.train')
     tiny = str(ROOT / 'configs/da/faster_rcnn_r18_tiny_fixture.py')
     models = {}

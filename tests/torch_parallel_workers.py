@@ -159,7 +159,137 @@ def _case(name):
                      valid=np.arange(7)[None] < np.array([[7], [1], [4], [2]]),
                      domain=np.array([0, 1, 0, 1], np.int32)),
                 {}, None, fn)
+    if name in ONE_STAGE_CASES:
+        return _one_stage_case(name, rs)
     raise KeyError(name)
+
+
+# the proposal family's and the one-stage core's losses: each couples the
+# rows through its global-batch normalizers (GFL's Σ quality with its
+# gradient, GHM-C's mean over images)
+ONE_STAGE_CASES = ('ga_losses', 'crpn_losses', 'dense_focal_anchor_loss',
+                   'fcos_loss', 'atss_loss', 'gfl_loss', 'paa_loss')
+# rows that are data, not activations: the loss takes no gradient of them
+# (a global normalizer that depends on them, such as FCOS's Σ centerness,
+# is a constant of the step, as in the JAX package)
+DATA_ROWS = ('gt_boxes',)
+STRIDES = (8, 16, 32, 64, 128)
+SIZES = ((8, 12), (4, 6), (2, 3), (1, 2), (1, 1))     # a 64x96 canvas
+
+
+def _one_stage_case(name, rs):
+    from importlib import import_module
+    b, g = ROWS, 5
+    gt = _boxes(rs, (b, g), 64, 8, 40)
+    gt_valid = np.arange(g)[None] < np.array([[5], [0], [2], [4]])
+    rows = dict(gt_boxes=gt, gt_valid=gt_valid,
+                gt_labels=rs.randint(0, 3, (b, g)).astype(np.int64))
+
+    def batch_of(r):
+        return dict(gt_bboxes=r['gt_boxes'], gt_valid=r['gt_valid'],
+                    gt_labels=r['gt_labels'])
+
+    def normal(*shape, scale=1.0):
+        return (rs.standard_normal(shape) * scale).astype(np.float32)
+
+    if name in ('ga_losses', 'crpn_losses'):
+        rpn = import_module(f'{PORT}.models.detectors.rpn_detectors')
+        strides, sizes = STRIDES[:2], SIZES[:2]
+        centers, svec, levels = (t.numpy() for t in rpn._fpn_grid(
+            strides, sizes, 'cpu'))
+        n = len(centers)
+        wh = rs.uniform(10, 60, (b, n, 2)).astype(np.float32)
+        guided = np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+        if name == 'ga_losses':
+            fake = types.SimpleNamespace(strides=strides, octave_base=2.0,
+                                         center_ratio=0.5, num_classes=3)
+
+            def fn(r, o, m):
+                bt = batch_of(r)
+                losses = rpn._GABase._ga_losses(
+                    fake, r['loc'], r['anchors'], o['centers'], o['levels'],
+                    bt)
+                losses.update(rpn._GABase._rpn_losses(
+                    fake, r['cls1'], r['reg'], r['anchors'].detach(), bt))
+                losses.update(rpn.GARetinaNet._retina_losses(
+                    fake, r['cls'], r['reg'], r['anchors'], bt))
+                return sum(losses.values())
+            rows.update(loc=normal(b, n), anchors=guided,
+                        cls1=normal(b, n, 1), cls=normal(b, n, 3),
+                        reg=normal(b, n, 4, scale=0.3))
+            return rows, dict(centers=centers, levels=levels), None, fn
+        anchors0 = np.concatenate([centers - svec[:, None] * 2,
+                                   centers + svec[:, None] * 2], -1)
+
+        def fn(r, o, m):
+            return sum(rpn.CascadeRPN._crpn_losses(
+                None, r['reg1'], r['cls2'], r['reg2'], o['anchors0'],
+                r['anchors1'], batch_of(r), 0.7).values())
+        rows.update(reg1=normal(b, n, 4, scale=0.3), cls2=normal(b, n),
+                    reg2=normal(b, n, 4, scale=0.3), anchors1=guided)
+        return rows, dict(anchors0=anchors0), None, fn
+    anchor_head = import_module(f'{PORT}.models.dense_heads.anchor_head')
+    if name == 'dense_focal_anchor_loss':
+        cfg = anchor_head.MultiAnchorConfig()
+        anchors = cfg.flat_anchors(SIZES).astype(np.float32)
+        n = len(anchors)
+
+        def fn(r, o, m):
+            return sum(sum(anchor_head.dense_focal_anchor_loss(
+                r['cls'], r['reg'], o['anchors'], r['gt_boxes'],
+                r['gt_labels'], r['gt_valid'], r['img_shape'], 3,
+                anchor_head.DenseAnchorTrainConfig(loss_cls=kind)).values())
+                for kind in ('focal', 'ghm'))
+        rows.update(cls=normal(b, n, 3), reg=normal(b, n, 4, scale=0.3),
+                    img_shape=np.array([[64, 96], [64, 96], [48, 80],
+                                        [64, 70]], np.int32))
+        return rows, dict(anchors=anchors), None, fn
+    if name == 'fcos_loss':
+        fcos = import_module(f'{PORT}.models.detectors.fcos')
+        pts, strs, rngs = (t.numpy() for t in fcos.fcos_points(SIZES,
+                                                               STRIDES))
+        n = len(pts)
+
+        def fn(r, o, m):
+            return sum(sum(fcos.fcos_loss(
+                r['cls'], r['reg'], r['ctr'], o['pts'], o['strs'],
+                o['rngs'], r['gt_boxes'], r['gt_labels'], r['gt_valid'], 3,
+                center_sampling=cs).values()) for cs in (False, True))
+        rows.update(cls=normal(b, n, 3), ctr=normal(b, n, 1),
+                    reg=np.exp(normal(b, n, 4, scale=0.5)))
+        return rows, dict(pts=pts, strs=strs, rngs=rngs), None, fn
+    anchors, nla = anchor_head.level_anchors(STRIDES, (1.0,), (4.0,), SIZES,
+                                             'cpu')
+    anchors = anchors.numpy()
+    n = len(anchors)
+    if name == 'atss_loss':
+        atss = import_module(f'{PORT}.models.detectors.atss')
+
+        def fn(r, o, m):
+            return sum(atss.atss_loss(
+                r['cls'], r['reg'], r['ctr'], o['anchors'], nla, r['gt_boxes'],
+                r['gt_labels'], r['gt_valid'], 3).values())
+        rows.update(cls=normal(b, n, 3), reg=normal(b, n, 4, scale=0.3),
+                    ctr=normal(b, n, 1))
+        return rows, dict(anchors=anchors), None, fn
+    if name == 'gfl_loss':
+        gfl = import_module(f'{PORT}.models.detectors.gfl')
+        strides = np.repeat(np.float32(STRIDES), nla)
+
+        def fn(r, o, m):
+            return sum(gfl.gfl_loss(
+                r['cls'], r['reg'], o['anchors'], nla, o['strides'],
+                r['gt_boxes'], r['gt_labels'], r['gt_valid'], 3, 16).values())
+        rows.update(cls=normal(b, n, 3), reg=normal(b, n, 68, scale=2.0))
+        return rows, dict(anchors=anchors, strides=strides), None, fn
+    paa = import_module(f'{PORT}.models.detectors.paa')
+
+    def fn(r, o, m):
+        return sum(paa.paa_loss(r['cls'], r['reg'], r['iou'], o['anchors'],
+                                nla, batch_of(r), 3, 4).values())
+    rows.update(cls=normal(b, n, 3), reg=normal(b, n, 4, scale=0.2),
+                iou=normal(b, n, 1))
+    return rows, dict(anchors=anchors), None, fn
 
 
 def global_batch_cases(names: List[str]) -> Dict:
@@ -175,8 +305,8 @@ def global_batch_cases(names: List[str]) -> Dict:
     for name in names:
         rows, other, module, fn = _case(name)
         r = {k: _t(v[lo:hi]) for k, v in rows.items()}
-        for v in r.values():
-            if v.is_floating_point():
+        for k, v in r.items():
+            if v.is_floating_point() and k not in DATA_ROWS:
                 v.requires_grad_(True)
         o = {k: _t(v) for k, v in other.items()}
         params = dict(module.named_parameters()) if module is not None else {}

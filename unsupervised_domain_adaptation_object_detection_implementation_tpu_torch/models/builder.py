@@ -45,10 +45,11 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.registry import DETECTORS
 from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
-from .detectors import (cascade_rcnn,  # noqa: F401 (register)
+from .detectors import (atss, cascade_rcnn,  # noqa: F401 (register)
                         cyda_faster_rcnn, da_faster_rcnn, faster_rcnn,
-                        faster_rcnn_fpn, htc, mask_rcnn, mask_rcnn_c4,
-                        roi_variants, rpn_detectors, scnet)
+                        faster_rcnn_fpn, fcos, gfl, htc, mask_rcnn,
+                        mask_rcnn_c4, paa, retinanet, roi_variants,
+                        rpn_detectors, scnet)
 from .detectors.faster_rcnn import AnchorConfig
 from .layers.precision import compute_dtype
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
@@ -90,6 +91,11 @@ _REFERENCE_DETECTOR_MAP = {
     'GAFasterRCNN': ('GAFasterRCNN', {}),
     'CascadeRPN': ('CascadeRPN', {}),
     'CRPNFasterRCNN': ('CRPNFasterRCNN', {}),
+    'RetinaNet': ('RetinaNet', {}),
+    'FCOS': ('FCOS', {}),
+    'ATSS': ('ATSS', {}),
+    'GFL': ('GFL', {}),
+    'PAA': ('PAA', {}),
 }
 
 # reference bbox_head.loss_bbox types that decode boxes (the IoU family);

@@ -40,6 +40,7 @@ from ...core.bbox.extra_assigners import center_region_assign
 from ...core.bbox.transforms import bbox2delta, clip_boxes, delta2bbox
 from ...core.post.nms import NEG_INF, nms, topk_stable
 from ...ops.deform_conv import batched_deform_conv2d
+from ...parallel.batch import batch_total
 from ...utils.registry import DETECTORS, HEADS
 from ..backbones.build import build_trunk
 from ..dense_heads.anchor_head import (DensePredictConfig,
@@ -453,7 +454,8 @@ class _GABase(_Forward, nn.Module):
         best = torch.argmin(key, dim=1)
         shape_l = iou_loss(anchors, _rows(gt, best),
                            weight=is_pos.to(anchors.dtype), reduction='sum')
-        denom = torch.clamp(is_pos.sum().to(loc_l.dtype), min=1.0)
+        denom = torch.clamp(batch_total(is_pos.sum().to(loc_l.dtype)),
+                            min=1.0)
         return dict(loss_loc=loc_l / denom, loss_shape=shape_l / denom)
 
     def _rpn_losses(self, cls, reg, anchors, batch):
@@ -471,8 +473,10 @@ class _GABase(_Forward, nn.Module):
         reg_l = smooth_l1_loss(reg, tgt, weight=pos[..., None].float(),
                                beta=1.0, reduction='sum')
         return dict(
-            loss_rpn_cls=cls_l / torch.clamp(chosen.sum().float(), min=1.0),
-            loss_rpn_bbox=reg_l / torch.clamp(pos.sum().float(), min=1.0))
+            loss_rpn_cls=cls_l / torch.clamp(batch_total(chosen.sum().float()),
+                                             min=1.0),
+            loss_rpn_bbox=reg_l / torch.clamp(batch_total(pos.sum().float()),
+                                              min=1.0))
 
     def _loc_filtered(self, loc, score):
         """`score` at NEG_INF where the location probability is under
@@ -499,26 +503,31 @@ class GARetinaNet(_GABase):
     def ga_out_channels(self) -> int:
         return self.num_classes
 
+    def _retina_losses(self, cls, reg, anchors, batch):
+        """The focal loss over max-IoU (0.5 / 0.4 / 0.0) assigned guided
+        anchors and smooth-L1 (β 1/9) on the positives, both over the
+        batch's positive count."""
+        anchors = anchors.detach()
+        gt, gtv = batch['gt_bboxes'].float(), batch['gt_valid']
+        a = max_iou_assign(anchors, gt, gtv, batch['gt_labels'],
+                           pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+        pos = a.assigned_gt_inds > 0
+        labels = torch.where(pos, a.labels,
+                             torch.full_like(a.labels, self.num_classes))
+        cls_l = sigmoid_focal_loss(cls, labels, reduction='sum')
+        tgt = bbox2delta(anchors, _matched(gt, a.assigned_gt_inds),
+                         stds=GA_STDS)
+        reg_l = smooth_l1_loss(reg, tgt, weight=pos[..., None].float(),
+                               beta=1.0 / 9.0, reduction='sum')
+        denom = torch.clamp(batch_total(pos.sum().float()), min=1.0)
+        return dict(loss_cls=cls_l / denom, loss_bbox=reg_l / denom)
+
     def loss(self, batch, generator=None, sampler_priorities=None):
         loc, _, cls, reg, anchors, centers, levels, _ = self._flat(
             batch['image'].float())
         with record_function('step/ga_loss'):
             losses = self._ga_losses(loc, anchors, centers, levels, batch)
-            anchors = anchors.detach()
-            gt, gtv = batch['gt_bboxes'].float(), batch['gt_valid']
-            a = max_iou_assign(anchors, gt, gtv, batch['gt_labels'],
-                               pos_iou_thr=0.5, neg_iou_thr=0.4,
-                               min_pos_iou=0.0)
-            pos = a.assigned_gt_inds > 0
-            labels = torch.where(pos, a.labels,
-                                 torch.full_like(a.labels, self.num_classes))
-            cls_l = sigmoid_focal_loss(cls, labels, reduction='sum')
-            tgt = bbox2delta(anchors, _matched(gt, a.assigned_gt_inds),
-                             stds=GA_STDS)
-            reg_l = smooth_l1_loss(reg, tgt, weight=pos[..., None].float(),
-                                   beta=1.0 / 9.0, reduction='sum')
-            denom = torch.clamp(pos.sum().float(), min=1.0)
-            losses.update(loss_cls=cls_l / denom, loss_bbox=reg_l / denom)
+            losses.update(self._retina_losses(cls, reg, anchors, batch))
         return losses
 
     @torch.inference_mode()
@@ -697,11 +706,12 @@ class CascadeRPN(_Forward, nn.Module):
         t2 = bbox2delta(anch, _matched(gt, a2.assigned_gt_inds))
         l2 = smooth_l1_loss(reg2, t2, weight=pos2[..., None].float(),
                             beta=1.0, reduction='sum')
-        denom = torch.clamp((pos1.sum() + pos2.sum()).float(), min=1.0)
+        denom = torch.clamp(batch_total((pos1.sum() + pos2.sum()).float()),
+                            min=1.0)
         return dict(
             loss_rpn_reg_s1=weight * l1 / denom,
-            loss_rpn_cls=weight * cls_l / torch.clamp(chosen.sum().float(),
-                                                      min=1.0),
+            loss_rpn_cls=weight * cls_l / torch.clamp(
+                batch_total(chosen.sum().float()), min=1.0),
             loss_rpn_reg_s2=weight * l2 / denom)
 
     def loss(self, batch, generator=None, sampler_priorities=None):

@@ -13,6 +13,7 @@ from .layers.attention import MHSA
 from .backbones.swin import WindowAttention
 from .layers.norm import BatchNorm, FrozenBatchNorm, GroupNorm, LayerNorm
 from .detectors.roi_variants import DoubleBBoxHead
+from .detectors.retinanet import init_dense_heads_
 from .detectors.rpn_detectors import init_adaptive_heads_
 from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
@@ -57,7 +58,11 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
     (`rpn_detectors.init_adaptive_heads_`: the adaptive convs' kernels at
     flax's `he_normal` scale, the offset convs zero, the GA logits' bias
     −4.595), their prediction convs at mmdet's std 0.01 unless `heads` is
-    'lecun'."""
+    'lecun'. The one-stage heads (RetinaNet's, FCOS's, ATSS's and GFL's)
+    get theirs from `retinanet.init_dense_heads_`: towers and outputs at
+    mmdet's std 0.01 unless `heads` is 'lecun', the classifier's bias
+    −4.595, the per-level scales 1, FCOS's deformable convs at the
+    `he_normal` scale with zero offsets."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
@@ -92,4 +97,5 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
         for layer, std in layers:
             layer.weight.normal_(0.0, std, generator=generator)
     init_adaptive_heads_(model, generator, heads)
+    init_dense_heads_(model, generator, heads)
     return model

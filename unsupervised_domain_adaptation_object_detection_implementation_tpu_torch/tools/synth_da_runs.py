@@ -1,8 +1,9 @@
 """The synth clear→foggy rows on a CUDA card: the three-row UDAOD
 protocol (source-only, DAF + clip + EMA, oracle), SWDA, and the zoo rows
 (Cascade R-CNN, R18-FPN, Double-Head, Grid and Dynamic R-CNN, CRPN-Faster
-R-CNN, GA-Faster R-CNN, GA-RetinaNet), each beside the JAX package's
-figure.
+R-CNN, GA-Faster R-CNN, GA-RetinaNet, and the one-stage core: RetinaNet,
+FCOS, ATSS, GFL and PAA, RetinaNet and GFL also with anchors fitted to the
+set's 24–34 px shapes), each beside the JAX package's figure.
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.synth_da_runs \
         <row> [<row> ...] [--seed 0] [--max-epochs k] [--resume-from <ckpt>] \
@@ -74,7 +75,7 @@ ZOO = 'configs/da/synth_zoo_smoke.py'
 # rows did (flax's default for every layer): at mmdet's scale the port's
 # DAF and oracle rows missed their JAX figures and DAF fell to source-only
 # (PERF.md, gate 3); the zoo rows keep mmdet's (their lr is 0.01), but
-# for Grid R-CNN and GA-Faster R-CNN
+# for Grid R-CNN, GA-Faster R-CNN and the one-stage core
 LECUN = {'random_init.heads': 'lecun'}
 ROWS = {
     'source_only': Row('configs/da/faster_rcnn_r18_synth_source_only.py',
@@ -125,6 +126,33 @@ ROWS = {
     'ga_retina': Row('configs/da/synth_ga_retina_smoke.py', {}, 'train',
                      (('shapes_clear', 'train'),), 'shapes_clear', 0.554,
                      'docs/RESULTS.md:679'),
+    # the one-stage core on the zoo config, its heads at the lecun scale:
+    # at mmdet's std 0.01 its towers learned slowly and every row missed
+    # (PERF.md §6, the one-stage core)
+    'retinanet': Row(ZOO, dict(LECUN, **{'model.type': 'RetinaNet'}),
+                     'train', (('shapes_clear', 'train'),), 'shapes_clear',
+                     0.412, 'docs/RESULTS.md:308'),
+    'retinanet_fit': Row(ZOO, dict(LECUN, **{
+        'model.type': 'RetinaNet',
+        'model.anchor_cfg.octave_base_scale': '2'}), 'train',
+        (('shapes_clear', 'train'),), 'shapes_clear', 0.712,
+        'docs/RESULTS.md:309'),
+    'fcos': Row(ZOO, dict(LECUN, **{'model.type': 'FCOS'}), 'train',
+                (('shapes_clear', 'train'),), 'shapes_clear', 0.808,
+                'docs/RESULTS.md:301'),
+    'atss': Row(ZOO, dict(LECUN, **{'model.type': 'ATSS'}), 'train',
+                (('shapes_clear', 'train'),), 'shapes_clear', 0.829,
+                'docs/RESULTS.md:300'),
+    'gfl': Row(ZOO, dict(LECUN, **{'model.type': 'GFL'}), 'train',
+               (('shapes_clear', 'train'),), 'shapes_clear', 0.463,
+               'docs/RESULTS.md:306'),
+    'gfl_fit': Row(ZOO, dict(LECUN, **{'model.type': 'GFL',
+                                       'model.anchor_scale': '3'}),
+                   'train', (('shapes_clear', 'train'),), 'shapes_clear',
+                   0.777, 'docs/RESULTS.md:307'),
+    'paa': Row(ZOO, dict(LECUN, **{'model.type': 'PAA'}), 'train',
+               (('shapes_clear', 'train'),), 'shapes_clear', 0.722,
+               'docs/RESULTS.md:303'),
 }
 
 

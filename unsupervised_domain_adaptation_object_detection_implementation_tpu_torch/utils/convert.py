@@ -22,7 +22,12 @@
   Guided Anchoring and Cascade RPN adaptive convs' HWIO kernels
   `adapt_conv_w` / `s2_adapt_w` (kh, kw, C, Co), which the port's
   deformable conv takes as they are (bf16 at `dtype=bfloat16`, as the JAX
-  package makes them).
+  package makes them), and the one-stage heads' per-level scalars
+  `scale_{lvl}`;
+- FCOS's deformable convs (`cls_conv3_dcn/kernel`, HWIO) become a conv's
+  `weight`, as a conv kernel does (the port's `DeformConv` keeps its
+  kernel as a conv does); their offset convs (`cls_conv3_offset`) are
+  convs.
 
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
@@ -35,13 +40,15 @@ reads them in) and `scnet_mask_head`. Leaves with no counterpart in the
 model are returned, not dropped silently; for every detector the port
 has (each DA variant, CyDA and CyCADA, the Swin trunk, the cascade
 family, the RoI-head variants' `DoubleBBoxHead`, `GridHead`,
-`MaskIoUHead` and `PointHead`, and the proposal-network family included)
-there are none.
+`MaskIoUHead` and `PointHead`, the proposal-network family and the
+one-stage core included) there are none.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+
+import re
 
 import numpy as np
 import torch
@@ -69,7 +76,8 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], leaf: Any
         if name == 'kernel' and value.ndim == 2:
             return f'{prefix}weight', value.T
         if name in ('bias', 'scale', 'conv_logits_kernel', 'rel_h', 'rel_w',
-                    'rel_bias', 'adapt_conv_w', 's2_adapt_w'):
+                    'rel_bias', 'adapt_conv_w', 's2_adapt_w') \
+                or re.fullmatch(r'scale_\d+', name):
             return prefix + name, value
     elif collection == 'batch_stats' and name in ('mean', 'var'):
         return prefix + name, value
