@@ -346,6 +346,25 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    CPU (detections within 1e-3; one train step's losses within 1e-4
    relative and parameters within 1e-4 of scale), and a tiny bf16
    RetinaNet's head outputs card vs CPU within 2e-2 of their scale.
+28. anchor heads — the RetinaNet-derived heads from their R50 configs at
+   full width (seeded weights, 800x1344): configs/free_anchor/
+   retinanet_free_anchor_r50_fpn_1x.py, configs/fsaf/fsaf_r50_fpn_1x.py,
+   configs/foveabox/fovea_r50_fpn_4x4_1x.py, configs/sabl/
+   sabl_{retinanet,faster_rcnn,cascade_rcnn}_r50_fpn_1x.py and
+   configs/pisa/pisa_{retinanet,faster_rcnn,mask_rcnn}_r50_fpn_1x.py: 2
+   requests of 2 Cityscapes-size images (score_thr 0.001) and 1 warm-up
+   and 2 timed train steps on 2 images with 16 gt boxes over the levels
+   (PISA Mask R-CNN's with 112² rasters), finite losses under the JAX
+   keys, every parameter but the stem and layer1 moved; the one-stage
+   heads launch no RoIAlign, SABL Faster R-CNN launches the pair once a
+   stage each way, PISA Faster and Mask R-CNN as Faster and Mask R-CNN
+   FPN. The pair is held against its plain version on the RoIs that the
+   trained SABL, SABL-cascade (both stages), PISA-Faster and PISA-Mask
+   steps sample (box features, PISA Mask's o=14 mask features and o=28
+   targets), the last stage timed. Last, tiny R18 FreeAnchor, FSAF, SABL
+   cascade and PISA Mask R-CNN card vs CPU (detections within 1e-3, one
+   train step's losses within 1e-4 relative and parameters within 1e-4 of
+   scale).
 
 The line before the last is `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -357,6 +376,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -396,6 +416,8 @@ from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.mo
     rpn_detectors as rpn_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
     retinanet as retina_mod
+from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.detectors import \
+    sabl_retina as sabl_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.models.layers import \
     plugins as plugins_mod
 from unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.core.post.nms import \
@@ -1150,13 +1172,15 @@ def _train(card, config, steps_per_epoch, label, counters, batch=None,
         torch.cuda.max_memory_allocated()
 
 
-def _moved(params, start, frozen, label):
+def _moved(params, start, frozen, label, either=()):
     """The number of parameters that moved; raises unless exactly those
-    outside the `frozen` prefixes did."""
+    outside the `frozen` prefixes did (those matching a pattern of `either`
+    may do both)."""
     moved = 0
     for n, p in params.items():
         same = torch.equal(p.detach(), start[n])
-        if n.startswith(frozen) != same:
+        if n.startswith(frozen) != same and not any(
+                re.fullmatch(e, n) for e in either):
             state = 'unchanged' if same else 'changed'
             raise RuntimeError(f'{label}: {n} {state} after the steps')
         moved += not same
@@ -4918,6 +4942,239 @@ def phase_one_stage(card):
                            'pair')
 
 
+# ---- the RetinaNet-derived heads: FreeAnchor, FSAF, FoveaBox, SABL (one
+# and two stage, plain and cascade), PISA (RetinaNet, Faster, Mask) --------
+
+FREE_ANCHOR = 'configs/free_anchor/retinanet_free_anchor_r50_fpn_1x.py'
+FSAF_CFG = 'configs/fsaf/fsaf_r50_fpn_1x.py'
+FOVEA_CFG = 'configs/foveabox/fovea_r50_fpn_4x4_1x.py'
+SABL_RETINA = 'configs/sabl/sabl_retinanet_r50_fpn_1x.py'
+SABL_FASTER = 'configs/sabl/sabl_faster_rcnn_r50_fpn_1x.py'
+SABL_CASCADE = 'configs/sabl/sabl_cascade_rcnn_r50_fpn_1x.py'
+PISA_RETINA = 'configs/pisa/pisa_retinanet_r50_fpn_1x.py'
+PISA_FASTER = 'configs/pisa/pisa_faster_rcnn_r50_fpn_1x.py'
+PISA_MASK = 'configs/pisa/pisa_mask_rcnn_r50_fpn_1x.py'
+SABL_KEYS = {'loss_cls', 'loss_bbox_cls', 'loss_bbox_reg'}
+# a SABL RoI head's offset predictor shares its bias over the 14 bucket
+# positions of an axis; a positive's two nearest buckets take targets of
+# opposite sign 1 apart, so while the predictions are near 0 and both
+# targets lie beyond β = 0.1 the smooth-L1 gradients cancel and the bias
+# stays 0 (as in JAX): with few positives (the cascade's first stage at
+# IoU 0.5 without low-quality matches) it may not move in 3 steps
+SABL_OFFSET_BIASES = (r'sabl_head_\d\.bucket_off_[xy]\.bias',)
+
+
+class AnchorHeadRun(NamedTuple):
+    """One run of `phase_anchor_heads`: the pair's launches a request
+    (forward) and a train step (forward, backward), the loss terms, the
+    regimes held on a step's sampled RoIs (keys of CASCADE_ENTRIES; the
+    last stage's timed) and whether the detector rescores its detections
+    after the threshold and decodes each box edge on its own (SABL)."""
+    label: str
+    config: str
+    keys: set
+    serving: int = 0
+    step: Tuple[int, int] = (0, 0)
+    regimes: Tuple[str, ...] = ()
+    sabl: bool = False
+
+
+# The launches, counted from the code (models/detectors/free_anchor.py,
+# fsaf.py, fovea.py, sabl_retina.py, pisa.py): the one-stage heads run no
+# RoIAlign; SABL Faster R-CNN pools each stage's boxes once a request and
+# once each way a step; PISA Faster R-CNN as Faster R-CNN FPN, PISA Mask
+# R-CNN as Mask R-CNN FPN (box and mask features a request; those and the
+# o=28 targets forward and both features backward a step)
+ANCHOR_HEAD_RUNS = (
+    AnchorHeadRun('free anchor', FREE_ANCHOR,
+                  {'positive_bag_loss', 'negative_bag_loss'}),
+    AnchorHeadRun('fsaf', FSAF_CFG, BOX_KEYS),
+    AnchorHeadRun('fovea', FOVEA_CFG, BOX_KEYS),
+    AnchorHeadRun('sabl retina', SABL_RETINA, SABL_KEYS, sabl=True),
+    AnchorHeadRun('sabl faster', SABL_FASTER, RPN_KEYS | SABL_KEYS, 1,
+                  (1, 1), ('sabl_box',), sabl=True),
+    AnchorHeadRun('sabl cascade', SABL_CASCADE, RPN_KEYS | {
+        f's{i}.{k}' for i in range(2) for k in SABL_KEYS}, 2, (2, 2),
+        ('sabl_cascade_box',), sabl=True),
+    AnchorHeadRun('pisa retina', PISA_RETINA, BOX_KEYS),
+    AnchorHeadRun('pisa faster', PISA_FASTER, RPN_KEYS | BOX_KEYS, 1,
+                  (1, 1), ('pisa_box',)),
+    AnchorHeadRun('pisa mask', PISA_MASK, RPN_KEYS | BOX_KEYS | {
+        'loss_mask'}, 2, (3, 2), ('pisa_box', 'pisa_mask')))
+# SABL's box head reads (B, S, 7, 7, C) features; at f32 the JAX package
+# pools these FPN paths with `roi_align_fpn_fused`
+CASCADE_ENTRIES.update(
+    sabl_box=('roi_align_pyramid_fwd/sabl_box',
+              'roi_align_pyramid_bwd/sabl_box', 944, 889, 7, False),
+    sabl_cascade_box=('roi_align_pyramid_fwd/sabl_cascade_box',
+                      'roi_align_pyramid_bwd/sabl_cascade_box', 944, 889, 7,
+                      False),
+    pisa_box=('roi_align_pyramid_fwd/pisa_box',
+              'roi_align_pyramid_bwd/pisa_box', 944, 889, 7, True),
+    pisa_mask=('roi_align_pyramid_fwd/pisa_mask',
+               'roi_align_pyramid_bwd/pisa_mask', 944, 889, 14, False))
+# the tiny card-vs-CPU references: FreeAnchor and FSAF as ONE_STAGE_TINY;
+# the SABL cascade and PISA Mask R-CNN with an R18 trunk, 2 classes, 32
+# RoIs a stage and few proposals (as FEW_PROPOSALS, for the same reason;
+# SABL's proposal and sample counts are fields of the port's module, which
+# the JAX module fixes at 1000 and 512); a weight seed each whose top 66
+# scores (the one-stage heads' sigmoids, the others' RPN logits) on the
+# reference images and the train batch lie >= 9.4e-5 (FreeAnchor),
+# 1.1e-4 (FSAF), 1.7e-5 (SABL cascade) and 2.0e-5 (PISA Mask) apart,
+# relatively (a CPU count)
+ANCHOR_HEAD_TINY = {
+    FREE_ANCHOR: (ONE_STAGE_TINY, 1),
+    FSAF_CFG: (ONE_STAGE_TINY, 4),
+    SABL_CASCADE: ({'model.backbone_depth': 18, 'model.num_classes': 2,
+                    'model.num_samples': 32,
+                    'model.rpn_proposal_cfg': dict(nms_pre=64,
+                                                   max_per_img=32),
+                    'model.rpn_test_cfg': dict(nms_pre=64, max_per_img=32),
+                    'data.test.pipeline': FEW_PROPOSALS['data.test.pipeline']},
+                   3),
+    PISA_MASK: (dict(FEW_PROPOSALS, **{'model.backbone_depth': 18,
+                                       'model.num_classes': 2}), 2)}
+
+
+def sabl_stage_rois(model, batch, seed):
+    """The RoIs each stage of a SABL Faster R-CNN train step samples from
+    `batch` (as its `loss` samples them: the proposals, then the first
+    stage's bucket decode), the pyramid's maps and the generator that drew
+    them."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    stages = []
+    with torch.no_grad():
+        feats = model.extract_feat(batch['image'])
+        boxes, _, valid = rpn_proposals(
+            *model.rpn_outputs(feats), batch['img_shape'],
+            model.rpn_proposal_cfg)
+        maps = model.roi_maps(feats)
+        for i, head in enumerate(model.bbox_heads):
+            sampled = sample_rois(
+                boxes, valid, batch['gt_bboxes'], batch['gt_labels'],
+                batch['gt_valid'], model.num_classes, model.stage_cfg(i),
+                generator=gen)
+            sampled = sampled._replace(rois=sampled.rois.contiguous())
+            stages.append(sampled)
+            _, bc, bo = head(model.roi_extract(maps, sampled.rois,
+                                               flatten=False))
+            boxes, _ = sabl_mod._decode(sampled.rois, bc, bo,
+                                        batch['img_shape'],
+                                        model.scale_factor)
+            valid = sampled.label_valid
+    return maps, stages, gen
+
+
+def anchor_head_kernels(run, model, batch):
+    """The pair against its plain version on the RoIs a train step of the
+    trained full-width two-stage `model` samples from `batch` (gt boxes on
+    every level), in each of the run's regimes, at every stage; the mask
+    run's o=28 targets too. Times the run's last regime on the last
+    stage's RoIs; returns its entries."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if run.sabl:
+        maps, stages, gen = sabl_stage_rois(model, batch, 3)
+    else:
+        maps, sampled, gen = sample_step_rois(model, batch, 3)
+        stages = [sampled]
+    entries = []
+    for i, sampled in enumerate(stages):
+        rois = sampled.rois
+        what = (f'{run.label} on stage {i}\'s sampled RoIs, per level '
+                f'P2..P5 {_level_counts(roi_align.roi_levels(rois, 4))}')
+        last = i == len(stages) - 1
+        for regime in run.regimes:
+            entries += _hold_pair(regime, maps, rois, gen, what,
+                                  last and regime == run.regimes[-1])
+        if 'pisa_mask' in run.regimes:
+            _targets_on_sampled_rois(run.label, batch, sampled, 28)
+    return entries
+
+
+def phase_anchor_heads(card, kernels):
+    """The RetinaNet-derived heads at full width from their R50 configs
+    (800x1344, seeded weights): per run 2 requests and 1 warm-up + 2 timed
+    train steps on 2 images with 16 gt boxes over the levels (PISA Mask
+    R-CNN's with 112² rasters), launching the pair as ANCHOR_HEAD_RUNS
+    counts; every parameter but the stem and layer1 moved; the pair held
+    on the SABL, SABL-cascade, PISA-Faster and PISA-Mask steps' sampled
+    RoIs (box features at every stage, PISA Mask's mask features and o=28
+    targets). Then tiny FreeAnchor, FSAF, SABL cascade and PISA Mask
+    R-CNN card vs CPU."""
+    rows = []
+    for run in ANCHOR_HEAD_RUNS:
+        stats = {}
+        two_stage = bool(run.serving)
+        # the two-stage heads at score_thr 0.001 too: 80 random classes
+        # score ~1/81 each
+        overrides = COCO_SERVING if two_stage else ONE_STAGE_SERVING
+        bundle, requests, served = _serve(
+            card, run.config, f'{run.label} serving',
+            {'roi_align_pyramid_fwd': (FWD, run.serving),
+             'roi_align_pyramid_bwd': (BWD, 0)},
+            overrides=overrides, n_requests=2, stats=stats,
+            canvas=COCO_CANVAS, score_floor=0.0 if run.sabl else None,
+            ordered=not run.sabl)
+        if not stats['dets']:
+            raise RuntimeError(f'{run.label}: no detection in any request')
+        if getattr(bundle.model, 'with_mask', False):
+            _cascade_masks(f'{run.label} serving', bundle, requests[-1])
+        del bundle, requests
+        _free()
+        batch = mask_batch(COCO_CANVAS) if 'pisa_mask' in run.regimes \
+            else fpn_level_batch(COCO_CANVAS)
+        trainer, state, start, times, totals, peak = _train(
+            card, run.config, COCO_STEPS, f'{run.label} train',
+            {'roi_align_pyramid_fwd': (FWD, run.step[0]),
+             'roi_align_pyramid_bwd': (BWD, run.step[1])},
+            batch, steps=2, keys=run.keys)
+        moved = _moved(trainer.state.params, start, FPN_FROZEN, run.label,
+                       SABL_OFFSET_BIASES if run.sabl else ())
+        med = float(np.median(times))
+        log(_train_summary(f'{run.label} train', run.config, times, peak,
+                           totals, card, '2 images 800x1344')
+            + f'; {moved} parameters moved, stem and layer1 unchanged')
+        if run.regimes:
+            entries = anchor_head_kernels(run, trainer.model, batch)
+            for e in entries:
+                e['launches'] = served['roi_align_pyramid_fwd'] + \
+                    totals['roi_align_pyramid_fwd'] if '_fwd/' in e['name'] \
+                    else totals['roi_align_pyramid_bwd']
+            kernels += entries
+        rows.append(f'{run.label} {run.config}: request ms mean '
+                    f'{np.mean(stats["latencies"]):.2f} '
+                    f'{[round(t, 2) for t in stats["latencies"]]}, serving '
+                    f'peak {stats["peak"] / 2**30:.2f} GiB, launches a '
+                    f'request {run.serving}; step ms median {med:.2f} '
+                    f'{[round(t, 2) for t in times]}, train peak '
+                    f'{peak / 2**30:.2f} GiB, launches a step {run.step}')
+        del trainer, state, start, batch
+        _free()
+    for row in rows:
+        log(f'anchor heads summary: {row} [{card}]')
+    anchors = 3 * sum(-(-128 // st) * -(-192 // st)
+                      for st in (4, 8, 16, 32, 64))
+    for path, (overrides, seed) in ANCHOR_HEAD_TINY.items():
+        run = next(r for r in ANCHOR_HEAD_RUNS if r.config == path)
+        label = f'tiny {run.label} (R18)'
+        before = FWD.launches, BWD.launches
+        two_stage = bool(run.serving)
+        phase_reference(_tiny_cfg(path, overrides), label, (100, 150), seed)
+        phase_reference_train(
+            _tiny_cfg(path, overrides), label, (128, 192),
+            anchors if two_stage else 1, 32 if two_stage else 1, seed,
+            mask_size=MASK_M if path == PISA_MASK else None,
+            stage_samples=32 if path == SABL_CASCADE else None)
+        # a mask detector serves once more for `predict`'s masks
+        mult = 2 if path == PISA_MASK else 1
+        want = (mult * run.serving + run.step[0], run.step[1])
+        got = (FWD.launches - before[0], BWD.launches - before[1])
+        if got != want:
+            raise RuntimeError(f'{label} on the card launched the pair '
+                               f'{got} times, expected {want}')
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -4951,6 +5208,7 @@ def main():
     phase_roi_variants(card, kernels)
     phase_rpn_detectors(card, kernels)
     phase_one_stage(card)
+    phase_anchor_heads(card, kernels)
     for k in kernels:
         if not k['launches']:
             raise RuntimeError(f'{k["name"]} was not launched on its path')

@@ -1,0 +1,44 @@
+"""The RetinaNet-derived heads against the JAX package, whole detectors:
+FreeAnchor and PISA-RetinaNet on RetinaNet's anchors (their R50 configs
+with an R18 trunk and 4 classes), from the same weights: `predict` on two
+images of 96x160 and one train step on two images of 128x192
+(`test_torch_one_stage.one_stage_case`, whose tolerances these are: each
+loss term within 1e-4 relative, the momentum within 1e-4 of the whole
+update's scale and 5e-3 of each tensor's, the detections within 1e-3).
+One JAX compile of the train step and one of `predict` a detector.
+"""
+
+import pytest
+
+from .test_torch_cascade import check_losses, check_update
+from .test_torch_one_stage import BOX, one_stage_case
+from .test_torch_rpn_detectors import check_predict
+
+# (config, weight seed, loss keys)
+CASES = {
+    'FreeAnchor': ('configs/free_anchor/retinanet_free_anchor_r50_fpn_1x.py',
+                   0, {'positive_bag_loss', 'negative_bag_loss'}),
+    # seed 0 leaves a ReLU of the towers within rounding of zero: the
+    # reg tower's update differs by 5e-3 of its scale
+    'PISARetinaNet': ('configs/pisa/pisa_retinanet_r50_fpn_1x.py', 1, BOX)}
+
+
+@pytest.fixture(scope='module', params=sorted(CASES))
+def case(request):
+    config, seed, _ = CASES[request.param]
+    return request.param, one_stage_case(config, seed)
+
+
+def test_anchor_head_losses_match(case):
+    name, c = case
+    check_losses(c, CASES[name][2])
+
+
+def test_anchor_head_sgd_update_matches(case):
+    name, c = case
+    check_update(c)
+
+
+def test_anchor_head_predict_matches(case):
+    name, c = case
+    check_predict(c)

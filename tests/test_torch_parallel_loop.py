@@ -77,7 +77,7 @@ def _rel(got, ref, tol):
 CASES = ['batch_norm', 'grouped_instance_loss', 'split_plain', 'rpn_loss',
          'bbox_loss', 'mask_loss', 'consistency_loss',
          'global_alignment_loss', 'gan_losses',
-         *workers.ONE_STAGE_CASES]
+         *workers.ONE_STAGE_CASES, *workers.ANCHOR_HEAD_CASES]
 
 
 @pytest.fixture(scope='module')

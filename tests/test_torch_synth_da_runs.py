@@ -51,11 +51,15 @@ TABLE = {
        for name, model_type in (
            ('retinanet', 'RetinaNet'), ('retinanet_fit', 'RetinaNet'),
            ('fcos', 'FCOS'), ('atss', 'ATSS'), ('gfl', 'GFL'),
-           ('gfl_fit', 'GFL'), ('paa', 'PAA'))},
+           ('gfl_fit', 'GFL'), ('paa', 'PAA'), ('free_anchor', 'FreeAnchor'),
+           ('fsaf', 'FSAF'), ('fovea', 'FoveaBox'),
+           ('sabl_retina', 'SABLRetinaNet'), ('pisa_retina', 'PISARetinaNet'),
+           ('sabl_faster', 'SABLFasterRCNN'),
+           ('pisa_faster', 'PISAFasterRCNN'))},
 }
 # the rows whose RPN and box heads keep mmdet's init scale
 MMDET_ROWS = ('cascade', 'fpn', 'double_head', 'dynamic', 'crpn_faster',
-              'ga_retina')
+              'ga_retina', 'sabl_faster', 'pisa_faster')
 
 
 def _row_configs(name):

@@ -161,6 +161,8 @@ def _case(name):
                 {}, None, fn)
     if name in ONE_STAGE_CASES:
         return _one_stage_case(name, rs)
+    if name in ANCHOR_HEAD_CASES:
+        return _anchor_head_case(name, rs)
     raise KeyError(name)
 
 
@@ -172,7 +174,7 @@ ONE_STAGE_CASES = ('ga_losses', 'crpn_losses', 'dense_focal_anchor_loss',
 # rows that are data, not activations: the loss takes no gradient of them
 # (a global normalizer that depends on them, such as FCOS's Σ centerness,
 # is a constant of the step, as in the JAX package)
-DATA_ROWS = ('gt_boxes',)
+DATA_ROWS = ('gt_boxes', 'rois', 'reg_targets')
 STRIDES = (8, 16, 32, 64, 128)
 SIZES = ((8, 12), (4, 6), (2, 3), (1, 2), (1, 1))     # a 64x96 canvas
 
@@ -290,6 +292,118 @@ def _one_stage_case(name, rs):
     rows.update(cls=normal(b, n, 3), reg=normal(b, n, 4, scale=0.2),
                 iou=normal(b, n, 1))
     return rows, dict(anchors=anchors), None, fn
+
+
+# the RetinaNet-derived heads' losses: FreeAnchor's Σ gt, FSAF's,
+# FoveaBox's, SABL's and PISA's positive counts, a SABL stage's sampled
+# and positive counts and PISA's two-stage sampled count are global-batch
+# normalizers (ISR-P and CARL renormalize within each image)
+ANCHOR_HEAD_CASES = ('free_anchor_loss', 'fsaf_loss', 'fovea_loss',
+                     'sabl_retina_loss', 'sabl_stage_loss',
+                     'pisa_anchor_loss', 'pisa_roi_losses')
+
+
+def _anchor_head_case(name, rs):
+    from importlib import import_module
+    b, g = ROWS, 5
+    gt = _boxes(rs, (b, g), 64, 8, 40)
+    gt_valid = np.arange(g)[None] < np.array([[5], [0], [2], [4]])
+    labels = rs.randint(0, 3, (b, g)).astype(np.int64)
+    rows = dict(gt_boxes=gt, gt_valid=gt_valid, gt_labels=labels)
+
+    def normal(*shape, scale=1.0):
+        return (rs.standard_normal(shape) * scale).astype(np.float32)
+
+    anchor_head = import_module(f'{PORT}.models.dense_heads.anchor_head')
+    if name in ('free_anchor_loss', 'pisa_anchor_loss'):
+        anchors = anchor_head.MultiAnchorConfig().flat_anchors(SIZES).astype(
+            np.float32)
+        n = len(anchors)
+        if name == 'free_anchor_loss':
+            fa = import_module(f'{PORT}.models.detectors.free_anchor')
+
+            def fn(r, o, m):
+                return sum(fa.free_anchor_loss(
+                    r['cls'], r['reg'], o['anchors'], r['gt_boxes'],
+                    r['gt_labels'], r['gt_valid'], 3).values())
+        else:
+            pisa = import_module(f'{PORT}.models.detectors.pisa')
+
+            def fn(r, o, m):
+                return sum(pisa.pisa_anchor_loss(
+                    r['cls'], r['reg'], o['anchors'], r['gt_boxes'],
+                    r['gt_labels'], r['gt_valid'], r['img_shape'],
+                    3).values())
+        rows.update(cls=normal(b, n, 3), reg=normal(b, n, 4, scale=0.3),
+                    img_shape=np.array([[64, 96], [64, 96], [48, 80],
+                                        [64, 70]], np.int32))
+        return rows, dict(anchors=anchors), None, fn
+    if name == 'fsaf_loss':
+        fsaf = import_module(f'{PORT}.models.detectors.fsaf')
+        pts, strs, lvl = (t.numpy() for t in fsaf.fsaf_points(SIZES,
+                                                              STRIDES))
+
+        def fn(r, o, m):
+            return sum(fsaf.fsaf_loss(
+                r['cls'], r['reg'], o['pts'], o['strs'], o['lvl'], 5,
+                r['gt_boxes'], r['gt_labels'], r['gt_valid'], 3).values())
+        rows.update(cls=normal(b, len(pts), 3),
+                    reg=np.exp(normal(b, len(pts), 4, scale=0.5)) * 0.3)
+        return rows, dict(pts=pts, strs=strs, lvl=lvl), None, fn
+    if name == 'fovea_loss':
+        fovea = import_module(f'{PORT}.models.detectors.fovea')
+        grid = [t.numpy() for t in fovea.fovea_grid(SIZES, STRIDES)]
+
+        def fn(r, o, m):
+            return sum(fovea.fovea_loss(
+                r['cls'], r['reg'], o['pts'], o['base'], o['lo'], o['hi'],
+                r['gt_boxes'], r['gt_labels'], r['gt_valid'], 3).values())
+        rows.update(cls=normal(b, len(grid[0]), 3),
+                    reg=normal(b, len(grid[0]), 4))
+        return rows, dict(zip(('pts', 'base', 'lo', 'hi'), grid)), None, fn
+    sabl = import_module(f'{PORT}.models.detectors.sabl_retina')
+    if name == 'sabl_retina_loss':
+        anchors, _ = anchor_head.level_anchors(STRIDES, (1.0,), (4,), SIZES,
+                                               'cpu')
+        n = len(anchors)
+
+        def fn(r, o, m):
+            return sum(sabl.sabl_retina_loss(
+                r['cls'], r['bc'], r['bo'], o['anchors'], r['gt_boxes'],
+                r['gt_labels'], r['gt_valid'], 3).values())
+        rows.update(cls=normal(b, n, 3), bc=normal(b, n, 28),
+                    bo=normal(b, n, 28, scale=0.5))
+        return rows, dict(anchors=anchors.numpy()), None, fn
+    # a stage's sampled RoIs as a data row: 24 slots an image, some
+    # padded, some positive, each matched to a valid gt where it has one
+    roi = import_module(f'{PORT}.models.roi_heads.standard_roi_head')
+    s = 24
+    valid = np.arange(s)[None] < np.array([[24], [10], [17], [3]])
+    is_pos = valid & (rs.uniform(0, 1, (b, s)) < 0.4) & gt_valid.any(1)[:, None]
+    matched = rs.randint(0, 5, (b, s)) % np.maximum(gt_valid.sum(1), 1)[:, None]
+    cls_lbl = np.where(is_pos, np.take_along_axis(labels, matched, 1), 3)
+    rows.update(rois=_boxes(rs, (b, s), 64, 8, 40), labels=cls_lbl,
+                label_valid=valid, is_pos=is_pos,
+                reg_targets=normal(b, s, 4), matched=matched,
+                cls=normal(b, s, 4))
+
+    def sampled(r):
+        return roi.SampledRoIs(r['rois'], r['labels'], r['label_valid'],
+                               r['is_pos'], r['reg_targets'], r['matched'])
+    if name == 'sabl_stage_loss':
+        def fn(r, o, m):
+            return sum(sabl.sabl_stage_loss(
+                r['cls'], r['bc'], r['bo'], sampled(r),
+                r['gt_boxes']).values())
+        rows.update(bc=normal(b, s, 28), bo=normal(b, s, 28, scale=0.5))
+        return rows, {}, None, fn
+    pisa = import_module(f'{PORT}.models.detectors.pisa')
+
+    def fn(r, o, m):
+        return sum(pisa.pisa_roi_losses(r['cls'], r['reg'], sampled(r),
+                                        r['gt_boxes'], 3).values())
+    rows.update(reg=normal(b, s, 12, scale=0.3))
+    return rows, {}, None, fn
 
 
 def global_batch_cases(names: List[str]) -> Dict:

@@ -227,6 +227,11 @@ def init_trainer(config: Union[str, Config],
 
 def _refuse_ranks(cfg: Config):
     """Raise for a detector whose multi-rank step is not ported."""
+    if cfg.model.get('type') == 'SABLFasterRCNN' and cfg.model.get('cascade'):
+        raise NotImplementedError(
+            'SABLFasterRCNN(cascade=True) on several ranks: the multi-rank '
+            'step of the cascade family is not ported (ROADMAP.md); train '
+            'it on one device')
     if cfg.model.get('type') in _ONE_DEVICE:
         raise NotImplementedError(
             f"{cfg.model['type']} on several ranks: the multi-rank step of "

@@ -47,9 +47,9 @@ from ..utils.registry import DETECTORS
 from .dense_heads.rpn_head import ProposalConfig, RPNTrainConfig
 from .detectors import (atss, cascade_rcnn,  # noqa: F401 (register)
                         cyda_faster_rcnn, da_faster_rcnn, faster_rcnn,
-                        faster_rcnn_fpn, fcos, gfl, htc, mask_rcnn,
-                        mask_rcnn_c4, paa, retinanet, roi_variants,
-                        rpn_detectors, scnet)
+                        faster_rcnn_fpn, fcos, fovea, free_anchor, fsaf, gfl,
+                        htc, mask_rcnn, mask_rcnn_c4, paa, pisa, retinanet,
+                        roi_variants, rpn_detectors, sabl_retina, scnet)
 from .detectors.faster_rcnn import AnchorConfig
 from .layers.precision import compute_dtype
 from .roi_heads.standard_roi_head import RoITestConfig, RoITrainConfig
@@ -96,7 +96,19 @@ _REFERENCE_DETECTOR_MAP = {
     'ATSS': ('ATSS', {}),
     'GFL': ('GFL', {}),
     'PAA': ('PAA', {}),
+    'FreeAnchor': ('FreeAnchor', {}),
+    'FSAF': ('FSAF', {}),
+    'FoveaBox': ('FoveaBox', {}),
+    'SABLRetinaNet': ('SABLRetinaNet', {}),
+    'SABLFasterRCNN': ('SABLFasterRCNN', {}),
+    'PISARetinaNet': ('PISARetinaNet', {}),
+    'PISAFasterRCNN': ('PISAFasterRCNN', {}),
+    'PISAMaskRCNN': ('PISAMaskRCNN', {}),
 }
+
+# detector types of the JAX package that wait for a family the port has
+# not yet: type → the reason
+_WAITING = {'PISASSD': 'ssd', 'PISASSDLite': 'ssd'}
 
 # reference bbox_head.loss_bbox types that decode boxes (the IoU family);
 # the port has only the smooth-L1 'l1' regression loss, and these raise
@@ -246,6 +258,10 @@ def build_detector(cfg: Dict[str, Any],
     cfg = dict(cfg)
     det_type = cfg.pop('type')
     dtype = compute_dtype(cfg.pop('dtype', None))
+    if det_type in _WAITING:
+        raise NotImplementedError(
+            f'detector type {det_type!r} is not ported ({_WAITING[det_type]}, '
+            'ROADMAP.md Queue 1 item 4)')
     if det_type not in _REFERENCE_DETECTOR_MAP:
         raise KeyError(f'detector type {det_type!r} is not ported; have '
                        f'{sorted(_REFERENCE_DETECTOR_MAP)}')

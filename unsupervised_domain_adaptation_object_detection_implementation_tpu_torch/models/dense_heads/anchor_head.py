@@ -172,18 +172,33 @@ def dense_predict(probs: torch.Tensor,
     `decode(prior index (B, K))` (B, K, 4) clipped to the image, then
     class-aware NMS and the top `max_per_img` → dict(dets (B, M, 5), labels
     (B, M), valid (B, M)), zeroed past the valid rows."""
-    b = probs.shape[0]
-    flat = probs.reshape(b, -1)
-    flat = torch.where(flat > cfg.score_thr, flat, flat.new_tensor(NEG_INF))
-    k = min(cfg.nms_pre, flat.shape[-1])
-    top, idx = topk_stable(flat, k)
+    top, idx = top_scores(probs, cfg)
     labels = idx % num_classes
     boxes = clip_boxes(decode(idx // num_classes),
                        img_shape[:, None, :].float())
-    keep, _ = batched_nms(boxes, top, labels, cfg.nms_iou_threshold,
+    return nms_detections(boxes, top, labels, cfg)
+
+
+def top_scores(probs: torch.Tensor, cfg: DensePredictConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top `nms_pre` of each image's (B, N, C) scores over `score_thr`
+    (the rest at NEG_INF, ties to the lower flat index) and their flat
+    indices."""
+    flat = probs.reshape(probs.shape[0], -1)
+    flat = torch.where(flat > cfg.score_thr, flat, flat.new_tensor(NEG_INF))
+    return topk_stable(flat, min(cfg.nms_pre, flat.shape[-1]))
+
+
+def nms_detections(boxes: torch.Tensor, scores: torch.Tensor,
+                   labels: torch.Tensor, cfg: DensePredictConfig
+                   ) -> Dict[str, torch.Tensor]:
+    """Class-aware NMS of (B, K, 4) boxes with (B, K) scores and labels,
+    then the top `max_per_img` → dict(dets (B, M, 5), labels (B, M), valid
+    (B, M)), zeroed past the valid rows (scores over NEG_INF / 2)."""
+    keep, _ = batched_nms(boxes, scores, labels, cfg.nms_iou_threshold,
                           cfg.nms_tile)
-    kept = torch.where(keep, top, top.new_tensor(NEG_INF))
-    m = min(cfg.max_per_img, k)
+    kept = torch.where(keep, scores, scores.new_tensor(NEG_INF))
+    m = min(cfg.max_per_img, scores.shape[-1])
     sc, sel = topk_stable(kept, m)
     valid = sc > NEG_INF / 2
     dets = torch.cat([_rows(boxes, sel) * valid[..., None],

@@ -83,3 +83,38 @@ class Linear(nn.Linear):
             return super().forward(x.to(dt))
         y = F.linear(x.to(dt), self.weight.to(dt))
         return _add_bias(y, self.bias, (-1,))
+
+
+class Conv1d(nn.Conv1d):
+    """`nn.Conv1d` computed at `compute_dtype`, as `Conv2d`."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.to(dt))
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return _add_bias(y, self.bias, (1, -1, 1))
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """`nn.ConvTranspose1d` computed at `compute_dtype`, as `Conv2d`."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.to(dt))
+        y = F.conv_transpose1d(x.to(dt), self.weight.to(dt), None,
+                               self.stride, self.padding,
+                               self.output_padding, self.groups,
+                               self.dilation)
+        return _add_bias(y, self.bias, (1, -1, 1))

@@ -31,6 +31,17 @@ def jax_max(x: torch.Tensor, floor: float) -> torch.Tensor:
     return torch.maximum(x, x.new_tensor(floor))
 
 
+def jax_clip(x: torch.Tensor, lo: Optional[float] = None,
+             hi: Optional[float] = None) -> torch.Tensor:
+    """`jnp.clip(x, lo, hi)`, a maximum then a minimum, with their gradient
+    at a bound, one half (torch's `clamp` gives 1)."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_tensor(lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_tensor(hi))
+    return x
+
+
 def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == 'none':
         return loss

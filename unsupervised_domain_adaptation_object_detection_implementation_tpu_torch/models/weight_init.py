@@ -14,6 +14,7 @@ from .backbones.swin import WindowAttention
 from .layers.norm import BatchNorm, FrozenBatchNorm, GroupNorm, LayerNorm
 from .detectors.roi_variants import DoubleBBoxHead
 from .detectors.retinanet import init_dense_heads_
+from .detectors.sabl_retina import SABLBBoxHead
 from .detectors.rpn_detectors import init_adaptive_heads_
 from .roi_heads.bbox_head import Shared2FCBBoxHead
 from .roi_heads.mask_head import FCNMaskHead
@@ -62,10 +63,18 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
     get theirs from `retinanet.init_dense_heads_`: towers and outputs at
     mmdet's std 0.01 unless `heads` is 'lecun', the classifier's bias
     −4.595, the per-level scales 1, FCOS's deformable convs at the
-    `he_normal` scale with zero offsets."""
+    `he_normal` scale with zero offsets (FSAF's, FoveaBox's and SABL's
+    heads are such towers too). SABL's box head takes mmdet's `SABLHead`
+    scales unless `heads` is 'lecun': the classifier and the bucket
+    logits at std 0.01, the bucket offsets at 0.001. The 1-D convs
+    (SABL's) draw at the lecun scale over flax's fan-in (taps x input
+    channels, for the transposed conv too)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.Conv1d, nn.Linear,
+                          nn.ConvTranspose1d)):
+            # a transposed conv's weight is (I, O, k): flax's fan-in, k x I
+            fan_in = m.weight.shape[0] * m.weight.shape[2] \
+                if isinstance(m, nn.ConvTranspose1d) else m.weight[0].numel()
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                              generator=generator)
             if m.bias is not None:
@@ -92,6 +101,10 @@ def init_random_weights_(model: nn.Module, generator: torch.Generator,
                       if isinstance(c, nn.Conv2d)]
         elif isinstance(m, (Shared2FCBBoxHead, C4BBoxHead, DoubleBBoxHead)):
             layers = [(m.fc_cls, 0.01), (m.fc_reg, 0.001)]
+        elif isinstance(m, SABLBBoxHead):
+            cls, bucket_cls, bucket_off = m.predictors()
+            layers = [(cls, 0.01)] + [(f, 0.01) for f in bucket_cls] + \
+                [(f, 0.001) for f in bucket_off]
         else:
             continue
         for layer, std in layers:

@@ -102,11 +102,12 @@ def ellipse_masks(rng, shape, m):
 
 def stage_split(prof, steps):
     """(host ms, device ms) per stage and step, from the `step/...` ranges
-    of a finished `torch.profiler.profile`. Host: the range's wall time.
-    Device: the kernels, copies and sets whose launch fell inside the range,
-    from any thread (autograd launches the backward from its own); work
-    launched outside every range is `other`, and device work whose launch
-    the trace does not show is `unattributed`."""
+    of a finished `torch.profiler.profile`. Host: the range's wall time (a
+    range opened inside another counts in both). Device: the kernels,
+    copies and sets whose launch fell inside the range, the innermost where
+    ranges nest, from any thread (autograd launches the backward from its
+    own); work launched outside every range is `other`, and device work
+    whose launch the trace does not show is `unattributed`."""
     cuda = torch.autograd.DeviceType.CUDA
     ranges, launched_at, device = [], {}, []
     for e in prof.profiler.kineto_results.events():
@@ -128,7 +129,9 @@ def stage_split(prof, steps):
         t, stage = launched_at.get(corr), 'unattributed'
         if t is not None:
             i = bisect.bisect_right(starts, t) - 1
-            stage = ranges[i][2] if i >= 0 and t <= ranges[i][1] else 'other'
+            while i >= 0 and t > ranges[i][1]:     # to an enclosing range
+                i -= 1
+            stage = ranges[i][2] if i >= 0 else 'other'
         dev[stage] += dur / 1e6 / steps
     return ({k: (host.get(k, 0.0), dev[k]) for k in dev},
             sum(d for _, d in device) / 1e6)

@@ -1,9 +1,11 @@
 """The synth clear→foggy rows on a CUDA card: the three-row UDAOD
 protocol (source-only, DAF + clip + EMA, oracle), SWDA, and the zoo rows
 (Cascade R-CNN, R18-FPN, Double-Head, Grid and Dynamic R-CNN, CRPN-Faster
-R-CNN, GA-Faster R-CNN, GA-RetinaNet, and the one-stage core: RetinaNet,
+R-CNN, GA-Faster R-CNN, GA-RetinaNet, the one-stage core: RetinaNet,
 FCOS, ATSS, GFL and PAA, RetinaNet and GFL also with anchors fitted to the
-set's 24–34 px shapes), each beside the JAX package's figure.
+set's 24–34 px shapes, and the RetinaNet-derived heads: FreeAnchor, FSAF,
+FoveaBox, SABL-RetinaNet, PISA-RetinaNet, SABL and PISA Faster R-CNN),
+each beside the JAX package's figure.
 
     python -m unsupervised_domain_adaptation_object_detection_implementation_tpu_torch.tools.synth_da_runs \
         <row> [<row> ...] [--seed 0] [--max-epochs k] [--resume-from <ckpt>] \
@@ -153,6 +155,30 @@ ROWS = {
     'paa': Row(ZOO, dict(LECUN, **{'model.type': 'PAA'}), 'train',
                (('shapes_clear', 'train'),), 'shapes_clear', 0.722,
                'docs/RESULTS.md:303'),
+    # the RetinaNet-derived heads: the one-stage rows on the zoo config at
+    # the lecun head scale, as the one-stage core's; the two-stage rows on
+    # their own smoke configs at mmdet's, as the FPN and cascade rows
+    'free_anchor': Row(ZOO, dict(LECUN, **{'model.type': 'FreeAnchor'}),
+                       'train', (('shapes_clear', 'train'),), 'shapes_clear',
+                       0.963, 'docs/RESULTS.md:287'),
+    'fsaf': Row(ZOO, dict(LECUN, **{'model.type': 'FSAF'}), 'train',
+                (('shapes_clear', 'train'),), 'shapes_clear', 0.838,
+                'docs/RESULTS.md:299'),
+    'fovea': Row(ZOO, dict(LECUN, **{'model.type': 'FoveaBox'}), 'train',
+                 (('shapes_clear', 'train'),), 'shapes_clear', 0.917,
+                 'docs/RESULTS.md:295'),
+    'sabl_retina': Row(ZOO, dict(LECUN, **{'model.type': 'SABLRetinaNet'}),
+                       'train', (('shapes_clear', 'train'),), 'shapes_clear',
+                       0.952, 'docs/RESULTS.md:290'),
+    'pisa_retina': Row(ZOO, dict(LECUN, **{'model.type': 'PISARetinaNet'}),
+                       'train', (('shapes_clear', 'train'),), 'shapes_clear',
+                       0.880, 'docs/RESULTS.md:680'),
+    'sabl_faster': Row('configs/da/synth_sabl_smoke.py', {}, 'train',
+                       (('shapes_clear', 'train'),), 'shapes_clear', 0.939,
+                       'docs/RESULTS.md:678'),
+    'pisa_faster': Row('configs/da/synth_pisa_faster_smoke.py', {}, 'train',
+                       (('shapes_clear', 'train'),), 'shapes_clear', 0.912,
+                       'docs/RESULTS.md:677'),
 }
 
 

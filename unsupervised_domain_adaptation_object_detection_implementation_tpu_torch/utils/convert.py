@@ -27,7 +27,12 @@
 - FCOS's deformable convs (`cls_conv3_dcn/kernel`, HWIO) become a conv's
   `weight`, as a conv kernel does (the port's `DeformConv` keeps its
   kernel as a conv does); their offset convs (`cls_conv3_offset`) are
-  convs.
+  convs;
+- 1-D conv `kernel` (k, I, O) (SABL's `reg_post_x` / `reg_post_y`) →
+  `weight` (O, I, k); the stride-2 transposed convs `up_x` / `up_y`, flax
+  `ConvTranspose` kernels (k, I, O) with `transpose_kernel=False`, which
+  put x[i] · kernel[1 - j] at output 2i + j, → `ConvTranspose1d` weights
+  (I, O, k) flipped along k (torch puts x[i] · weight[j] there).
 
 Module paths join with '.', and flax names that contain '/' (`layer1/0`)
 split there too, so `params/backbone/trunk/layer1/0/conv1/kernel` becomes
@@ -40,8 +45,9 @@ reads them in) and `scnet_mask_head`. Leaves with no counterpart in the
 model are returned, not dropped silently; for every detector the port
 has (each DA variant, CyDA and CyCADA, the Swin trunk, the cascade
 family, the RoI-head variants' `DoubleBBoxHead`, `GridHead`,
-`MaskIoUHead` and `PointHead`, the proposal-network family and the
-one-stage core included) there are none.
+`MaskIoUHead` and `PointHead`, the proposal-network family, the
+one-stage core and the RetinaNet-derived heads with SABL's box head and
+its cascade's `sabl_head_<i>` included) there are none.
 """
 
 from __future__ import annotations
@@ -75,6 +81,13 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], leaf: Any
             return f'{prefix}weight', value.transpose(3, 2, 0, 1)
         if name == 'kernel' and value.ndim == 2:
             return f'{prefix}weight', value.T
+        if name == 'kernel' and value.ndim == 3 and \
+                path[-2].startswith('up_'):
+            # flax ConvTranspose (k, I, O): out[2i + j] = x[i] · k[1 - j]
+            return f'{prefix}weight', np.ascontiguousarray(
+                value.transpose(1, 2, 0)[..., ::-1])
+        if name == 'kernel' and value.ndim == 3:
+            return f'{prefix}weight', value.transpose(2, 1, 0)
         if name in ('bias', 'scale', 'conv_logits_kernel', 'rel_h', 'rel_w',
                     'rel_bias', 'adapt_conv_w', 's2_adapt_w') \
                 or re.fullmatch(r'scale_\d+', name):
